@@ -32,6 +32,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# phase 5's bound on the kernel path's qkv-weight gradients against the
+# plain path's, in norm: about 4x the largest gap read on an H100 (1.3e-2,
+# even over the 12 blocks), far under the O(1) gap of a wrong gradient
+GRAD_REL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -94,21 +98,14 @@ def _split(qkv, h):
     return x[:, :, 0], x[:, :, 1], x[:, :, 2]
 
 
-def _half_ulp_bf16(x):
-    """Half a bf16 quantum at each value of x (0 where x is 0)."""
-    import torch
-
-    _, e = torch.frexp(x)
-    return torch.where(x == 0, torch.zeros_like(x), torch.ldexp(torch.ones_like(x), e - 9))
-
-
 def phase_kernels():
     """Kernel vs plain at the main path's shapes; every check runs and
     prints before the phase fails on any. Returns the JSON rows.
 
-    K1's bound is the 5e-3 of the TPU kernel test, counted beyond half a
-    bf16 quantum of each output: that test compared f32 outputs, these are
-    bf16 (a quantum is 7.8e-3 at |o| in [1, 2))."""
+    Bounds, those of the TPU kernel test: K1 max |kernel - plain f32| <
+    5e-3, K2 relative error < 1e-2, K3 (bf16 store) < 3e-4 against float64.
+    K3's f32 store is held to 1e-5: its phases (|p| < 256 here) carry at
+    most 5 f32 roundings of 7.6e-6 each, times the scale 0.044, 1.7e-6."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -131,13 +128,10 @@ def phase_kernels():
             q, k, v = _split(qkv, h)
             ref = flash.plain_attention(q, k, v, scale, nv).reshape(b, n, h * 64)
             torch.cuda.synchronize()
-            diff = (o.float() - ref).abs()
-            err = float(diff.max())
-            beyond = float((diff - _half_ulp_bf16(ref)).max())
-            log(f"  K1 N={n} n_valid={nv}: max|kernel - plain f32| = {err:.3e}, "
-                f"beyond half a bf16 quantum {beyond:.3e}")
-            if not beyond < 5e-3:
-                failures.append(f"K1 N={n} n_valid={nv}: {beyond}")
+            err = float((o.float() - ref).abs().max())
+            log(f"  K1 N={n} n_valid={nv}: max|kernel - plain f32| = {err:.3e}")
+            if not err < 5e-3:
+                failures.append(f"K1 N={n} n_valid={nv}: {err}")
             k1[(n, nv)] = err
         qb, kb, vb = (t.to(torch.bfloat16) for t in _split(qkv, h))
         ms = time_ms(lambda: flash.attn_fwd(qkv, h, scale))
@@ -221,20 +215,28 @@ def phase_kernels():
     bb = torch.from_numpy(b_np).cuda()
     sc = math.sqrt(2.0 / 1024)
     phi = rff.rff_phi(f, w, bb, sc)
+    phi32 = rff.rff_phi(f, w, bb, sc, torch.float32)
     torch.cuda.synchronize()
-    err = 0.0
+    err = err32 = 0.0
     for i in range(4):  # f64 reference one image at a time (1.6 GB each)
         ref = sc * np.cos(feats[i].astype(np.float64) @ w_np + b_np)
         err = max(err, float(np.abs(phi[i].float().cpu().numpy() - ref).max()))
-    log(f"  K3 (4, 50176, 5) -> 1024: max|kernel - f64| = {err:.3e}")
+        err32 = max(err32, float(np.abs(phi32[i].cpu().numpy() - ref).max()))
+    log(f"  K3 (4, 50176, 5) -> 1024: max|kernel - f64| = {err:.3e} (bf16 store), "
+        f"{err32:.3e} (f32 store)")
     if not err < 3e-4:
-        failures.append(f"K3: {err}")
+        failures.append(f"K3 bf16: {err}")
+    if not err32 < 1e-5:
+        failures.append(f"K3 f32: {err32}")
     ms = time_ms(lambda: rff.rff_phi(f, w, bb, sc))
     plain = time_ms(lambda: rff.plain_rff_phi(f, w, bb, sc))
+    ms32 = time_ms(lambda: rff.rff_phi(f, w, bb, sc, torch.float32))
     rows_n = 4 * 224 * 224
     nbytes = rows_n * 5 * 4 + 6 * 1024 * 4 + rows_n * 1024 * 2
     bms, by = bound_ms(nbytes, 10.0 * rows_n * 1024, PEAK_F32)
-    log(f"  K3: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+    bms32, _ = bound_ms(nbytes + rows_n * 1024 * 2, 10.0 * rows_n * 1024, PEAK_F32)
+    log(f"  K3: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}); "
+        f"f32 store {ms32:.4f} ms, bound {bms32:.4f} ms")
     rows.append(dict(
         name="rff_phi", route="cuda", source="cosa_tpu_torch/csrc/rff_phi.cu",
         replaces="cosa_tpu/kernels/rff.py:89", shape="(4, 50176, 5) f32 -> 1024 bf16",
@@ -243,9 +245,9 @@ def phase_kernels():
     ))
     if failures:
         raise AssertionError("phase 3 kernel checks failed: " + "; ".join(failures))
-    log("phase 3 ok: K1 within 5e-3 beyond bf16 output rounding at N in "
-        "(197, 785, 1765), masked and not; K2 dq/dk/dv rel err < 1e-2; "
-        "K3 max err vs f64 < 3e-4")
+    log("phase 3 ok: K1 max err < 5e-3 at N in (197, 785, 1765), masked and "
+        "not; K2 dq/dk/dv rel err < 1e-2; K3 max err vs f64 < 3e-4 (bf16), "
+        "< 1e-5 (f32)")
     return rows
 
 
@@ -312,16 +314,35 @@ def phase_main_path(smi: str):
     return counts, res["energy_convention"]
 
 
+def _student_qkv_grads(state, simg, detach):
+    """The student's qkv-weight gradient in each block under one seeded
+    cotangent on each of its outputs: a backward through K2 (or the plain
+    attention) at the main path's shapes, with no pseudo labels in it."""
+    import torch
+
+    out = state.student(simg, detach=detach)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    loss = sum((out[k].float() * torch.randn(out[k].shape, generator=gen, device="cuda")).sum()
+               for k in sorted(out) if out[k].requires_grad)
+    qkv = [p for n, p in state.student.named_parameters() if n.endswith("attn.qkv.weight")]
+    return [g.float() for g in torch.autograd.grad(loss, qkv)]
+
+
 def phase_flash_vs_plain(convention: float):
-    """One step from one state and batch, with the kernels and with the
-    plain attention. Tolerance 3e-2 relative on every loss (absolute floor
-    1e-3): the two paths round differently in bf16 (the plain path stores
-    its scores in bf16, the kernel keeps them in f32 and feeds bf16
-    probabilities to the PV product), that difference compounds over 12
-    blocks, and pseudo-mask pixels near a threshold can flip."""
+    """From one state and batch, on the card, the kernels (K1/K2) against
+    the plain attention (flash_attention=False). Held: (a) each block's
+    student qkv-weight gradient under a fixed cotangent, in norm, within
+    GRAD_REL of the plain path's; (b) one training step's losses within
+    5e-3 relative (floor 1e-4 absolute), about 10x the largest gap read on
+    an H100 (4.9e-4). The two paths round differently in bf16: the plain
+    path stores its scores in bf16, the kernel keeps them in f32 and feeds
+    bf16 probabilities to the PV product. A whole step's gradients are not
+    held: the teachers' pseudo masks differ by the pixels that sit at a
+    threshold, and those flips move the gradient by several percent."""
     import torch
 
     from cosa_tpu_torch.data.loader import build_train_loader
+    from cosa_tpu_torch.ops.image import normalize
     from cosa_tpu_torch.train.state import create_train_state
     from cosa_tpu_torch.train.step import build_train_step
 
@@ -333,20 +354,31 @@ def phase_flash_vs_plain(convention: float):
         batch = next(loader)
     finally:
         loader.close()
-    out = {}
+    out, grads = {}, {}
     for tag, cfg in (("kernel", cfg_k), ("plain", cfg_p)):
         state = create_train_state(cfg, "cuda")
         tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        grads[tag] = _student_qkv_grads(state, normalize(tb["simg"]), cfg.detach)
         m = build_train_step(cfg)(state, tb)
         out[tag] = {k: float(m[k]) for k in (
             "overall_loss", "cls_loss", "cls_aux_loss", "seg_loss", "cam_loss", "reg_loss")}
         del state
+    gaps = {k: abs(a - out["plain"][k]) / max(abs(out["plain"][k]), 1e-30)
+            for k, a in out["kernel"].items()}
+    grad_rel = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+                for a, b in zip(grads["kernel"], grads["plain"])]
+    log(f"phase 5: qkv grad rel err in norm by block {[f'{g:.2e}' for g in grad_rel]}; "
+        f"kernel step {json.dumps(out['kernel'])} vs plain step {json.dumps(out['plain'])}, "
+        f"largest relative loss gap {max(gaps.values()):.3e}")
+    if len(grad_rel) != 12:
+        raise AssertionError(f"expected 12 qkv gradients, got {len(grad_rel)}")
+    if not max(grad_rel) < GRAD_REL:
+        raise AssertionError(f"phase 5 qkv grads: rel err {max(grad_rel)} >= {GRAD_REL}")
     for k, a in out["kernel"].items():
         b = out["plain"][k]
-        if not abs(a - b) <= max(3e-2 * abs(b), 1e-3):
+        if not abs(a - b) <= max(5e-3 * abs(b), 1e-4):
             raise AssertionError(f"phase 5 {k}: kernel {a} vs plain {b}")
-    log(f"phase 5 ok: kernel step {json.dumps(out['kernel'])} vs plain step "
-        f"{json.dumps(out['plain'])} within 3e-2 relative")
+    log(f"phase 5 ok: qkv grads within {GRAD_REL} in norm, losses within 5e-3 relative")
 
 
 def main() -> int:

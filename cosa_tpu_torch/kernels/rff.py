@@ -1,7 +1,7 @@
 """Random-Fourier-feature embedding: kernel K3 and its plain version.
 
-``phi = scale * cos(features @ W + b)`` over every pixel row, stored bf16.
-The kernel (``csrc/rff_phi.cu``) replaces the JAX package's Pallas
+``phi = scale * cos(features @ W + b)`` over every pixel row, stored bf16
+or f32. The kernel (``csrc/rff_phi.cu``) replaces the JAX package's Pallas
 ``_phi_kernel`` (kernels/rff.py); it never writes the f32 projection.
 """
 
@@ -16,6 +16,7 @@ LAUNCHES = {"rff_phi": 0}
 _VP = ctypes.c_void_p
 _TYPED = []
 FEATURE_DIM = 5  # pixel features (x, y, r, g, b): the only width the kernel takes
+OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _lib():
@@ -24,7 +25,7 @@ def _lib():
     lib = load("rff")
     if lib not in _TYPED:
         lib.cosa_rff_phi.argtypes = [_VP] * 4 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, _VP]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, _VP]
         lib.cosa_rff_phi.restype = ctypes.c_int
         _TYPED.append(lib)
     return lib
@@ -38,11 +39,13 @@ def plain_rff_phi(features: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def rff_phi(features: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-            scale: float) -> torch.Tensor:
+            scale: float, dtype=torch.bfloat16) -> torch.Tensor:
     """K3. features (B, N, 5) f32, w (5, D) f32, b (D,) f32 on the card ->
-    (B, N, D) bf16. A CPU tensor takes the plain version."""
+    (B, N, D) ``dtype`` (bf16 or f32). A CPU tensor takes the plain version."""
     if features.device.type == "cpu":
-        return plain_rff_phi(features, w, b, scale)
+        return plain_rff_phi(features, w, b, scale, dtype)
+    if dtype not in OUT_DTYPES:
+        raise ValueError(f"rff_phi: output dtype must be one of {OUT_DTYPES}, got {dtype}")
     n_feat = w.shape[1]
     for name, x in (("features", features), ("w", w), ("b", b)):
         if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
@@ -56,10 +59,10 @@ def rff_phi(features: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if n_feat % 8 or 256 % (n_feat // 8):
         raise ValueError(f"rff_phi: D = {n_feat} must be 8 * a divisor of 256")
     bsz, n, _ = features.shape
-    out = torch.empty((bsz, n, n_feat), dtype=torch.bfloat16, device=features.device)
+    out = torch.empty((bsz, n, n_feat), dtype=dtype, device=features.device)
     err = _lib().cosa_rff_phi(
         features.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        bsz * n, n_feat, float(scale),
+        bsz * n, n_feat, float(scale), int(dtype == torch.float32),
         torch.cuda.current_stream(features.device).cuda_stream,
     )
     if err:

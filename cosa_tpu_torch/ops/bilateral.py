@@ -17,7 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from cosa_tpu_torch.kernels.rff import plain_rff_phi, rff_phi
+from cosa_tpu_torch.kernels.rff import rff_phi
 
 
 def pixel_features(image: torch.Tensor, sigma_rgb: float, sigma_xy: float) -> torch.Tensor:
@@ -56,16 +56,14 @@ def rff_embed(features: torch.Tensor, n_features: int = 256, seed: int = 0,
     """(B, N, dim) features -> (B, N, D) random Fourier embedding.
 
     The phase is always f32 (phases span tens of radians; bf16 would alias
-    them); ``dtype`` is the stored precision. bf16 goes through kernel K3
-    (its wrapper takes the plain version for a CPU tensor)."""
+    them); ``dtype`` is the stored precision, bf16 or f32. Every call goes
+    through kernel K3's wrapper, which takes the plain version only for a
+    CPU tensor."""
     w_np, b_np = _rff_params(n_features, features.shape[-1], seed)
     w = torch.from_numpy(w_np).to(features.device)
     b = torch.from_numpy(b_np).to(features.device)
     scale = float(np.sqrt(2.0 / n_features))
-    f = features.to(torch.float32).contiguous()
-    if dtype == torch.bfloat16:
-        return rff_phi(f, w, b, scale)
-    return plain_rff_phi(f, w, b, scale, dtype)
+    return rff_phi(features.to(torch.float32).contiguous(), w, b, scale, dtype)
 
 
 def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,8 @@ itself covering the reference's main.py:106-252):
 Eager PyTorch updates the state in place: the step returns only its
 metrics. Each phase runs under a ``torch.profiler.record_function`` span
 (teacher_tta, pseudo_labels, student_forward, losses, energy, backward,
-optimizer, ema), which a profiler reads (cli/profile_step.py) and which
-cost next to nothing without one. Loss weighting (main.py:240-243): the
+optimizer, ema), which ``torch.profiler`` reads and which cost next to
+nothing without one. Loss weighting (main.py:240-243): the
 cls losses are always on; seg/cam/reg are scaled by ``warmup_gate_floor``
 while step <= warmup_iters.
 """

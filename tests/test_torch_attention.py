@@ -73,3 +73,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     # the RFF wrapper takes its plain version for a CPU tensor
     np.testing.assert_array_equal(rff.rff_phi(f, w, b, 1.0).float().numpy(),
                                   rff.plain_rff_phi(f, w, b, 1.0).float().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rff_embed_goes_through_the_kernel_wrapper(monkeypatch, dtype):
+    """Both stored precisions reach K3's wrapper (which, on a CPU tensor,
+    takes the plain version): no dtype is routed around the kernel."""
+    from cosa_tpu_torch.ops import bilateral
+
+    calls = []
+
+    def spy(f, w, b, scale, out_dtype):
+        calls.append(out_dtype)
+        return rff.rff_phi(f, w, b, scale, out_dtype)
+
+    monkeypatch.setattr(bilateral, "rff_phi", spy)
+    f = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 9, 5)).astype(np.float32))
+    phi = bilateral.rff_embed(f, 32, 0, dtype)
+    assert calls == [dtype] and phi.dtype == dtype and phi.shape == (2, 9, 32)
+    w, b = (torch.from_numpy(a) for a in bilateral._rff_params(32, 5, 0))
+    ref = rff.plain_rff_phi(f, w, b, float(np.sqrt(2.0 / 32)), dtype)
+    np.testing.assert_array_equal(phi.float().numpy(), ref.float().numpy())
