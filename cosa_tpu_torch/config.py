@@ -158,12 +158,12 @@ class Config:
     crf_bi_xy: float = 121.0
     crf_bi_rgb: float = 5.0
     crf_reduce: int = 2  # exact-transform resolution divisor (device path)
-    # "device": batched exact-Gaussian mean-field INSIDE the eval step at
-    #   1/crf_reduce resolution — probs never leave the device (measured
-    #   37 ms/img on v5e vs 10.6 s/img for the host lattice on this host).
-    # "native": host C++ lattice at full res (pydensecrf's division of labor).
-    # "jax":    single-image jitted mean-field (full-res lattice or reduced
-    #   exact per crf_reduce).
+    # "device": exact-Gaussian mean-field on the device at 1/crf_reduce
+    #   resolution of the evaluation canvas (eval/crf.py); the probabilities
+    #   never leave the device.
+    # "native" (host C++ lattice at full resolution) and "jax" (the JAX
+    #   package's single-image path) are ROADMAP Queue 1 item 9: evaluate
+    #   raises for them.
     crf_backend: str = "device"
 
     # ---- device knobs (the JAX package's TPU section, mapped to one GPU) --
@@ -182,7 +182,9 @@ class Config:
     # references, so the flag has no meaning here and is kept for CLI parity
     donate: bool = True
     checkpoint_keep: int = 2
-    resume: str = ""  # not ported (ROADMAP Queue 1 item 7); non-empty raises
+    # a checkpoint file, or a checkpoint directory (its newest step), to
+    # continue training from (train/checkpoint.py)
+    resume: str = ""
     profile_dir: str = ""  # not ported (ROADMAP Queue 1 item 10); set raises
 
     # ---- derived ---------------------------------------------------------
@@ -206,10 +208,6 @@ class Config:
         if self.teacher_int8:
             raise NotImplementedError(
                 "teacher_int8: the int8 teacher is ROADMAP Queue 1 item 18"
-            )
-        if self.resume:
-            raise NotImplementedError(
-                "resume: checkpoint/resume is ROADMAP Queue 1 item 7"
             )
         if self.profile_dir:
             raise NotImplementedError(

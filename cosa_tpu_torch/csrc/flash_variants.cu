@@ -1,0 +1,294 @@
+// Attention forward with the two softmax variants of the JAX package's
+// softmax microbenchmark (K4), hand-written for Hopper (sm_90a), plain C
+// interface.
+//
+// Replaces scripts/microbench_softmax.py::attend_variant (Pallas body
+// _fwd_variant). It is K1's forward (flash_attn.cu::attn_fwd_kernel: 64-key
+// tiles, one warp per 16 query rows, mma.sync m16n8k16 bf16 fragments, the
+// score accumulator repacked as the PV product's A operand) with the
+// softmax part swapped by a template parameter:
+//
+//   BF16EXP  p = exp2 of the bf16-rounded (s - m), evaluated on bf16 pairs
+//            by the PTX instruction ex2.approx.ftz.bf16x2 (sm_90 and up),
+//            whose result is already packed as the PV product's A operand.
+//            It is written as inline PTX: cuda_bf16.h's h2exp2 (CUDA 12.8)
+//            unpacks the pair and runs two f32 ex2.approx instead. The row
+//            sum l is an f32 sum of the bf16 p values,
+//            taken as the TPU kernel takes it: a product against a column
+//            of ones with f32 accumulation (one more mma per 16 keys). The
+//            online-max rescale of o and l stays in f32.
+//   NOMAX    p = exp2(s - 30) in f32: a fixed shift in place of the row max,
+//            no max pass and no rescale. l is the f32 sum of the f32 p; p is
+//            rounded to bf16 for the PV product. As in the TPU kernel there
+//            is no guard: p overflows f32 where s (in log2 units) exceeds
+//            30 + 128 = 158, i.e. a raw logit scale * q.k above about 109.5
+//            ("|s| > ~120" in the JAX script's docstring), and a row whose
+//            every score lies below 30 - 149 sums to 0 and divides by it.
+//
+// Both modes mask keys at or past n_valid and the ragged N edge as K1 does;
+// the port does not pad (the JAX variant needs its caller to pad N to a
+// multiple of 128). Scores are scaled in f32 (scale * log2(e) on the f32
+// accumulator) where the TPU kernel rounds q * scale * log2(e) to bf16
+// first, as in K1. No log-sum-exp is written: the variants have no backward.
+//
+// What bounds it on the H100: as K1, the two N x N x 64 products and the
+// N x N exp2 (the bytes, q, k, v and o once, are small); the point of the
+// variants is to measure what the exp2 width and the max pass cost on this
+// card. A first, simple version: synchronous tile loads, no TMA, no wgmma.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int D = 64;       // head dim (the only one the kernel takes)
+constexpr int BQ = 64;      // query rows per block (16 per warp)
+constexpr int BK = 64;      // key rows per tile
+constexpr int LD = D + 8;   // shared row stride: conflict-free 32-bit loads
+constexpr int THREADS = 128;
+constexpr float NEG = -1e30f;
+constexpr float NOMAX_SHIFT = 30.f;       // microbench_softmax.py:56
+constexpr uint32_t BF16X2_ONES = 0x3F803F80u;  // two bf16 1.0
+
+enum Mode { BF16EXP = 0, NOMAX = 1 };
+
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// exp2 of the bf16 roundings of (lo, hi), on bf16 pairs
+__device__ __forceinline__ uint32_t exp2_bf16x2(float lo, float hi) {
+  const uint32_t x = pack2(lo, hi);
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment (16 x 16, row-major tile T[row][k]) for rows r0.., k-chunk kc.
+__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* T, int r0,
+                                       int kc, int g, int t) {
+  const bf16* p = T + (r0 + g) * LD + kc * 16 + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * LD);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * LD + 8);
+}
+
+// B fragment (16 x 8) from an n-major tile Bm[n][k], n-tile nt, k-chunk kc.
+__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
+                                       const bf16* Bm, int nt, int kc, int g,
+                                       int t) {
+  const bf16* p = Bm + (nt * 8 + g) * LD + kc * 16 + 2 * t;
+  b0 = ld32(p);
+  b1 = ld32(p + 8);
+}
+
+// 64 rows x 64 bf16 of one head from the token-strided `src` into a
+// row-major shared tile; rows >= n_rows are zero.
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          size_t stride, int row0,
+                                          int n_rows) {
+  for (int c = threadIdx.x; c < 64 * 8; c += THREADS) {
+    const int r = c >> 3, col = (c & 7) * 8, n = row0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (n < n_rows)
+      v = *reinterpret_cast<const uint4*>(src + (size_t)n * stride + col);
+    *reinterpret_cast<uint4*>(dst + r * LD + col) = v;
+  }
+}
+
+// Same rows, stored transposed: dst[d][row].
+__device__ __forceinline__ void load_rows_t(bf16* dst, const bf16* src,
+                                            size_t stride, int row0,
+                                            int n_rows) {
+  for (int c = threadIdx.x; c < 64 * 8; c += THREADS) {
+    const int r = c >> 3, col = (c & 7) * 8, n = row0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (n < n_rows)
+      v = *reinterpret_cast<const uint4*>(src + (size_t)n * stride + col);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[(col + i) * LD + r] = e[i];
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+    attn_fwd_variant_kernel(const bf16* __restrict__ qkv,
+                            bf16* __restrict__ out, int N, int H,
+                            int n_valid, float qscale) {
+  __shared__ __align__(16) bf16 sQ[BQ * LD];
+  __shared__ __align__(16) bf16 sK[BK * LD];
+  __shared__ __align__(16) bf16 sVt[D * LD];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const size_t tok = (size_t)3 * H * D;  // qkv elements per token
+  const bf16* qb = qkv + (size_t)b * N * tok + (size_t)h * D;
+  const bf16* kb = qb + (size_t)H * D;
+  const bf16* vb = qb + (size_t)2 * H * D;
+
+  load_rows(sQ, qb, tok, q0, N);
+  __syncthreads();
+  const int r0 = warp * 16;
+  uint32_t qa[4][4];
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) load_a(qa[kc], sQ, r0, kc, g, t);
+
+  float o[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  // BF16EXP: running max and the ones-column accumulator of the row sums
+  // (c[0], c[1] hold row g's, c[2], c[3] row g + 8's, complete in every
+  // lane of the quad). NOMAX: per-lane partial row sums in l0, l1.
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+  float lacc[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int k0 = 0; k0 < n_valid; k0 += BK) {
+    __syncthreads();
+    load_rows(sK, kb, tok, k0, N);
+    load_rows_t(sVt, vb, tok, k0, N);
+    __syncthreads();
+
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        uint32_t b0, b1;
+        load_b(b0, b1, sK, nt, kc, g, t);
+        mma16816(s[nt], qa[kc], b0, b1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool ok = k0 + nt * 8 + 2 * t + j < n_valid;
+        s[nt][j] = ok ? s[nt][j] * qscale : NEG;
+        s[nt][2 + j] = ok ? s[nt][2 + j] * qscale : NEG;
+      }
+    }
+
+    // p as packed bf16 pairs: p[nt][0] row g, p[nt][1] row g + 8
+    uint32_t p[8][2];
+    if constexpr (MODE == BF16EXP) {
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        p[nt][0] = exp2_bf16x2(s[nt][0] - m0, s[nt][1] - m0);
+        p[nt][1] = exp2_bf16x2(s[nt][2] - m1, s[nt][3] - m1);
+        o[nt][0] *= a0;
+        o[nt][1] *= a0;
+        o[nt][2] *= a1;
+        o[nt][3] *= a1;
+      }
+      lacc[0] *= a0;
+      lacc[1] *= a0;
+      lacc[2] *= a1;
+      lacc[3] *= a1;
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = exp2f(s[nt][i] - NOMAX_SHIFT);
+        l0 += s[nt][0] + s[nt][1];
+        l1 += s[nt][2] + s[nt][3];
+        p[nt][0] = pack2(s[nt][0], s[nt][1]);
+        p[nt][1] = pack2(s[nt][2], s[nt][3]);
+      }
+    }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const uint32_t pa[4] = {p[2 * kc][0], p[2 * kc][1], p[2 * kc + 1][0],
+                              p[2 * kc + 1][1]};
+      if constexpr (MODE == BF16EXP)
+        mma16816(lacc, pa, BF16X2_ONES, BF16X2_ONES);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        uint32_t b0, b1;
+        load_b(b0, b1, sVt, nt, kc, g, t);
+        mma16816(o[nt], pa, b0, b1);
+      }
+    }
+  }
+  if constexpr (MODE == BF16EXP) {
+    l0 = lacc[0];
+    l1 = lacc[2];
+  } else {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int na = q0 + r0 + g, nb = na + 8;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int d = nt * 8 + 2 * t;
+    if (na < N)
+      *reinterpret_cast<uint32_t*>(out + ((size_t)(b * N + na) * H + h) * D +
+                                   d) = pack2(o[nt][0] * inv0, o[nt][1] * inv0);
+    if (nb < N)
+      *reinterpret_cast<uint32_t*>(out + ((size_t)(b * N + nb) * H + h) * D +
+                                   d) = pack2(o[nt][2] * inv1, o[nt][3] * inv1);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// qkv (B, N, 3, H, 64) bf16 -> out (B, N, H, 64) bf16; mode 0 = bf16exp,
+// 1 = nomax.
+int cosa_attn_fwd_variant(const void* qkv, void* out, int B, int N, int H,
+                          int n_valid, float scale, int mode,
+                          cudaStream_t stream) {
+  const float log2e = 1.4426950408889634f;
+  dim3 grid((N + BQ - 1) / BQ, B * H);
+  const bf16* in = static_cast<const bf16*>(qkv);
+  bf16* o = static_cast<bf16*>(out);
+  if (mode == BF16EXP)
+    attn_fwd_variant_kernel<BF16EXP><<<grid, THREADS, 0, stream>>>(
+        in, o, N, H, n_valid, scale * log2e);
+  else if (mode == NOMAX)
+    attn_fwd_variant_kernel<NOMAX><<<grid, THREADS, 0, stream>>>(
+        in, o, N, H, n_valid, scale * log2e);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -21,7 +21,8 @@ from typing import Dict, Iterable, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cosa_tpu_torch")
-SOURCES = {"flash": "flash_attn.cu", "rff": "rff_phi.cu"}
+SOURCES = {"flash": "flash_attn.cu", "rff": "rff_phi.cu",
+           "flash_variants": "flash_variants.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

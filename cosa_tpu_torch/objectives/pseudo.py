@@ -7,7 +7,8 @@ utils/seg_helper.py algorithms):
   * :func:`cam2mask` — CAM -> hard pseudo mask via high/low background
     thresholds, with absent classes masked before a full-channel softmax
     (equal to the reference's per-image present-class subset);
-  * :func:`cam_to_label`, :func:`cam_validation`, :func:`seg_refine_by_label`.
+  * :func:`cam_to_label`, :func:`cam_validation`, :func:`seg_validation`,
+    :func:`seg_refine_by_label`.
 
 img_box convention: (B, 4) int rows [h0, h1, w0, w1]; negative ends follow
 Python-slice semantics.
@@ -120,6 +121,15 @@ def _with_bkg(cls_label: torch.Tensor) -> torch.Tensor:
     ones = torch.ones((cls_label.shape[0], 1), dtype=cls_label.dtype,
                       device=cls_label.device)
     return torch.cat([ones, cls_label], dim=1)
+
+
+def seg_validation(seg: torch.Tensor, cls_label: Optional[torch.Tensor]) -> torch.Tensor:
+    """Set the seg logits of absent classes to -1e5; background is always
+    valid (seg_helper.py:581-591). seg: (B,H,W,C), cls_label: (B,C-1)."""
+    if cls_label is None:
+        return seg
+    lab_bk = _with_bkg(cls_label)[:, None, None, :]
+    return torch.where(lab_bk == 0, torch.full_like(seg, NEG_INF), seg)
 
 
 def seg_refine_by_label(

@@ -7,8 +7,9 @@ absent, with:
 
 Bounds: K1 max abs error < 5e-3 against the plain f32 version, K2
 relative error < 1e-2, K3 < 3e-4 against float64 with a bf16 store and
-< 1e-5 with an f32 store (chip_smoke.py holds the same kernels at the
-main path's shapes)."""
+< 1e-5 with an f32 store, K4 max abs error <= 1e-2 against its plain
+version with a cosine >= 0.9999 against K1 (chip_smoke.py holds the same
+kernels at the main path's shapes)."""
 
 import math
 
@@ -85,3 +86,69 @@ def test_train_steps_launch_every_kernel(gpu, tmp_path):
     assert after["flash_bwd"] - before["flash_bwd"] == 2 * depth
     assert after["rff_phi"] - before["rff_phi"] == 2 + 2  # steps + calibration probes
     assert all(np.isfinite(r["overall_loss"]) for r in res["records"])
+
+
+@pytest.mark.parametrize("n,nv", [(442, None), (442, 405), (1226, None), (1226, 1189)])
+def test_flash_fwd_at_the_eval_token_counts(gpu, n, nv):
+    """K1 at the evaluation's extra scales (0.75 and 1.25 of crop 448),
+    whose key tiles end ragged (442 = 6 * 64 + 58, 1226 = 19 * 64 + 10)."""
+    from cosa_tpu_torch.kernels import flash
+
+    b, h = 2, 12
+    g = torch.Generator(device=gpu).manual_seed(n)
+    qkv = torch.randn((b, n, 3 * h * 64), generator=g, device=gpu).to(torch.bfloat16)
+    o, _ = flash.attn_fwd(qkv, h, 0.125, nv)
+    xs = qkv.float().reshape(b, n, 3, h, 64)
+    ref = flash.plain_attention(xs[:, :, 0], xs[:, :, 1], xs[:, :, 2], 0.125, nv)
+    assert float((o.float() - ref.reshape(b, n, h * 64)).abs().max()) < 5e-3
+
+
+@pytest.mark.parametrize("n,nv", [(130, None), (200, 163), (785, None)])
+@pytest.mark.parametrize("mode", ["bf16exp", "nomax"])
+def test_flash_variant_kernel_matches_plain(gpu, mode, n, nv):
+    """K4 against its plain version in f32 (max abs <= 1e-2) and against K1
+    on the same input (cosine >= 0.9999)."""
+    from cosa_tpu_torch.kernels import flash, flash_variants
+
+    b, h = 2, 3
+    g = torch.Generator(device=gpu).manual_seed(n)
+    qkv = torch.randn((b, n, 3 * h * 64), generator=g, device=gpu).to(torch.bfloat16)
+    before = flash_variants.LAUNCHES[f"flash_fwd_{mode}"]
+    o = flash_variants.attn_fwd_variant(qkv, h, 0.125, nv, mode)
+    assert flash_variants.LAUNCHES[f"flash_fwd_{mode}"] == before + 1
+    x = qkv.reshape(b, n, 3, h, 64).permute(2, 0, 3, 1, 4).reshape(3, b * h, n, 64)
+    ref = flash_variants.plain_attend_variant(x[0], x[1], x[2], 0.125, nv, mode)
+    ref = ref.reshape(b, h, n, 64).permute(0, 2, 1, 3).reshape(b, n, h * 64)
+    assert float((o.float() - ref).abs().max()) <= 1e-2
+    k1 = flash.attn_fwd(qkv, h, 0.125, nv)[0].float()
+    cos = float((o.float() * k1).sum() / (o.float().norm() * k1.norm()))
+    assert cos >= 0.9999
+
+
+def test_crf_bilateral_product_needs_f32(gpu):
+    """The CRF's squared distances cancel terms near 1e4: in f32 the
+    bilateral product stays within 1e-3 of float64, under TF32 it does not
+    (so this input would catch TF32 on the path), and the CRF refuses to
+    run with TF32 on."""
+    from cosa_tpu_torch.config import preset_config
+    from cosa_tpu_torch.eval import crf
+    from cosa_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")  # the path's setting: TF32 off
+    rng = np.random.default_rng(6)
+    feats = (rng.random((2048, 5)) * [5, 5, 51, 51, 51]).astype(np.float32)
+    vals = rng.random((2048, 21)).astype(np.float32)
+    f64 = feats.astype(np.float64)
+    exact = np.exp(-0.5 * ((f64[:, None] - f64[None]) ** 2).sum(-1)) @ vals
+    f, v = torch.from_numpy(feats).to(gpu), torch.from_numpy(vals).to(gpu)
+    err = np.abs(crf._bilateral_exact_chunked(f, v, 512).cpu().numpy() - exact).max()
+    assert err <= 1e-3 * np.abs(exact).max()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        err32 = np.abs(crf._bilateral_exact_chunked(f, v, 512).cpu().numpy() - exact).max()
+        assert err32 > 1e-2 * np.abs(exact).max()
+        z = torch.zeros((1, 16, 16, 3), device=gpu)
+        with pytest.raises(RuntimeError, match="TF32"):
+            crf.crf_labels_device(preset_config("synthetic"), z, z, z[..., 0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

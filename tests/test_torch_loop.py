@@ -10,10 +10,10 @@ import torch
 
 from cosa_tpu.config import preset_config as jax_preset
 from cosa_tpu.data.loader import build_train_loader as jax_build_loader
-from cosa_tpu_torch.cli import train as cli_train
+from cosa_tpu_torch.cli import evaluate as cli_evaluate
 from cosa_tpu_torch.config import preset_config as torch_preset
 from cosa_tpu_torch.data.loader import build_train_loader
-from cosa_tpu_torch.train.loop import train
+from cosa_tpu_torch.train.loop import finaleval, train
 
 
 def _tiny(**kw):
@@ -62,13 +62,17 @@ def test_train_without_device_needs_a_gpu(tmp_path):
 
 
 def test_unported_options_raise_up_front(tmp_path):
-    with pytest.raises(NotImplementedError, match="items 7-8"):
-        train(_tiny(work_dir=str(tmp_path), eval_iters=2), device="cpu")
-    for kw in (dict(resume="x"), dict(teacher_int8=True), dict(profile_dir="p"), dict(tp=2)):
+    for kw in (dict(teacher_int8=True), dict(profile_dir="p"), dict(tp=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _tiny(**kw)
     with pytest.raises(NotImplementedError, match="lattice"):
         train(_tiny(work_dir=str(tmp_path), energy_filter="lattice",
                     energy_convention=1.0), device="cpu")
-    with pytest.raises(NotImplementedError, match="finalval"):
-        cli_train.main(["x", "--dataset", "synthetic", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        train(_tiny(work_dir=str(tmp_path), pretrained_path="x.pth"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        finaleval(_tiny(work_dir=str(tmp_path), eval_split="test"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        cli_evaluate.main(["x", "--dataset", "synthetic", "--backbone", "vit_tiny_test",
+                           "--crf_backend", "native", "--pretrained_path", "",
+                           "--work_dir", str(tmp_path), "--device", "cpu"])
