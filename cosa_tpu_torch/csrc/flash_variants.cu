@@ -3,10 +3,12 @@
 // interface.
 //
 // Replaces scripts/microbench_softmax.py::attend_variant (Pallas body
-// _fwd_variant). It is K1's forward (flash_attn.cu::attn_fwd_kernel: 64-key
-// tiles, one warp per 16 query rows, mma.sync m16n8k16 bf16 fragments, the
-// score accumulator repacked as the PV product's A operand) with the
-// softmax part swapped by a template parameter:
+// _fwd_variant). It is the first design of K1's forward (64-key tiles, one
+// warp per 16 query rows, mma.sync m16n8k16 bf16 fragments, the score
+// accumulator repacked as the PV product's A operand) with the softmax
+// part swapped by a template parameter. K1 itself (flash_attn.cu) now runs
+// on wgmma behind a cp.async ring, so the softmax microbenchmark compares
+// these variants with another mainloop than the one they vary:
 //
 //   BF16EXP  p = exp2 of the bf16-rounded (s - m), evaluated on bf16 pairs
 //            by the PTX instruction ex2.approx.ftz.bf16x2 (sm_90 and up),

@@ -8,6 +8,9 @@ gradient into the same layout, so no fold copies surround them.
 
 A wrapper launches its kernel for a CUDA tensor, or raises; it takes the
 plain version only for a tensor on the CPU.
+
+K1 works on blocks of 64 or 128 queries, which :func:`block_rows` picks
+from N; K2 on blocks of 128 keys.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Optional, Tuple
 import torch
 
 HEAD_DIM = 64  # the only head width the kernels take
+# K1 runs 128-query blocks above this many tokens, 64-query blocks up to it
+BLOCK_128_ABOVE = 1024
 
 # launches of each kernel's wrapper on the card (K1, K2); plain integers
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
@@ -32,9 +37,9 @@ def _lib():
     lib = load("flash")
     if lib not in _TYPED:
         lib.cosa_attn_fwd.argtypes = [_VP, _VP, _VP] + [ctypes.c_int] * 4 + [
-            ctypes.c_float, _VP]
+            ctypes.c_float, ctypes.c_int, _VP]
         lib.cosa_attn_fwd.restype = ctypes.c_int
-        lib.cosa_attn_bwd.argtypes = [_VP] * 6 + [ctypes.c_int] * 4 + [
+        lib.cosa_attn_bwd.argtypes = [_VP] * 7 + [ctypes.c_int] * 4 + [
             ctypes.c_float, _VP]
         lib.cosa_attn_bwd.restype = ctypes.c_int
         _TYPED.append(lib)
@@ -61,6 +66,15 @@ def plain_attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
     x = qkv.reshape(b, n, 3, num_heads, c3 // (3 * num_heads))
     o = plain_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2], scale, n_valid)
     return o.reshape(b, n, c3 // 3)
+
+
+def block_rows(n: int) -> int:
+    """Queries per block of K1 at N tokens: 64 (one warpgroup) up to
+    BLOCK_128_ABOVE, 128 (two) above. chip_smoke.py times both at each
+    (B*H, N) the paths launch; on an H100 SXM 64 read faster at N = 197
+    and 785 and within 1% at 442, 128 faster at 1226 and 1765, at every
+    B*H of 48 to 192."""
+    return 128 if n > BLOCK_128_ABOVE else 64
 
 
 def _check(name: str, x: torch.Tensor, shape) -> None:
@@ -97,7 +111,8 @@ def attn_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
     lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
     err = _lib().cosa_attn_fwd(
         qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, n, num_heads, nv,
-        float(scale), torch.cuda.current_stream(qkv.device).cuda_stream,
+        float(scale), block_rows(n),
+        torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"cosa_attn_fwd failed: cudaError_t {err}")
@@ -109,7 +124,8 @@ def attn_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
              lse: torch.Tensor, num_heads: int, scale: float,
              n_valid: Optional[int] = None) -> torch.Tensor:
     """K2. Gradient of :func:`attn_fwd` with respect to qkv, in qkv's
-    layout (B, N, 3*H*64) bf16."""
+    layout (B, N, 3*H*64) bf16. Deterministic: dq's partial sums are
+    added as 64-bit fixed point, in any order to the same result."""
     b, n, nv = _dims(qkv, num_heads, n_valid)
     _check("qkv", qkv, qkv.shape)
     _check("out", out, (b, n, num_heads * HEAD_DIM))
@@ -119,9 +135,13 @@ def attn_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
         raise ValueError("lse: expected contiguous f32 (B, H, N)")
     dqkv = torch.empty_like(qkv)
     delta = torch.empty_like(lse)
+    # dq's sum, 64-bit fixed point (csrc/flash_attn.cu: deterministic)
+    dq_acc = torch.empty((b, n, num_heads, HEAD_DIM), dtype=torch.int64,
+                         device=qkv.device)
     err = _lib().cosa_attn_bwd(
         qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dqkv.data_ptr(), b, n, num_heads, nv, float(scale),
+        delta.data_ptr(), dq_acc.data_ptr(), dqkv.data_ptr(), b, n, num_heads,
+        nv, float(scale),
         torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     if err:

@@ -94,3 +94,12 @@ def test_rff_embed_goes_through_the_kernel_wrapper(monkeypatch, dtype):
     w, b = (torch.from_numpy(a) for a in bilateral._rff_params(32, 5, 0))
     ref = rff.plain_rff_phi(f, w, b, float(np.sqrt(2.0 / 32)), dtype)
     np.testing.assert_array_equal(phi.float().numpy(), ref.float().numpy())
+
+
+@pytest.mark.parametrize("n,rows", [
+    (197, 64), (442, 64), (785, 64),  # the paths' token counts up to the switch
+    (1024, 64), (1025, 128),          # its edge
+    (1226, 128), (1765, 128),         # and above it
+])
+def test_flash_block_rows_switches_above_1024_tokens(n, rows):
+    assert flash.block_rows(n) == rows
