@@ -6,14 +6,16 @@
 Phases, in order; any failure exits nonzero and no phase catches and goes on:
   1. name the card (torch, and nvidia-smi's name and power limit);
   2. build the CUDA kernels from cosa_tpu_torch/csrc with nvcc, and read
-     the built SASS: K1/K2 must issue wgmma and async copies, K4's bf16exp
-     mode a bf16 exp2;
+     the built SASS: K1/K2 and K4 (K1's forward with another softmax) must
+     issue wgmma and async copies, K4's bf16exp mode a bf16 exp2, and K3
+     no slow-path cosine (MUFU.COS/SIN, local memory, a call);
   3. hold each kernel against its plain PyTorch version at the shapes its
      paths give it (K1 also at the evaluation's token counts, K4 at the
      softmax microbenchmark's), and time kernel, plain version and one
      PyTorch library call as device time, by replaying a CUDA graph (K1 at
      both block sizes and every (B*H, N) the paths launch it with, summed
-     per training step and per eval batch);
+     per training step and per eval batch; K4 beside K1 at the same shape
+     and block size; K3 beside a fill of its output);
   4. train 6 steps of the default VOC configuration (ViT-B/16, crop 448,
      batch 4, bf16, RFF energy) on synthetic data through
      cosa_tpu_torch.train.loop.train, from a seeded random init (no weights
@@ -116,79 +118,114 @@ def phase_device():
 def phase_build():
     from cosa_tpu_torch.kernels import build
 
+    import re
+
     secs = build.build()
     for name, text in build.BUILD_LOG.items():
+        fn = name
         for line in text.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = _kernel_name(m.group(1)) or m.group(1)
             if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+                log(f"  ptxas {fn}: {line.strip()}")
     log(f"phase 2 build: {secs:.1f} s for {sorted(build.SOURCES.values())}")
-    mufu = _k4_mufu(build)
-    log(f"phase 2 sass: K4's MUFU instructions by mode {json.dumps(mufu)}")
-    if "MUFU.EX2.BF16" not in mufu["bf16exp"]:
-        raise AssertionError("phase 2: the bf16exp kernel has no bf16 MUFU.EX2")
-    ops = _flash_sass(build)
+    ops = _sass(build, "flash")
     for fn, c in ops.items():
-        log(f"phase 2 sass: {fn} {json.dumps(c)}")
-    # K1 must multiply on wgmma and load by TMA or cp.async; the backward's
-    # product kernel must hold ldmatrix or wgmma, and an async copy. The
-    # backward's pre- and post-kernels (delta and dq's scratch, dq's bf16
-    # store) are elementwise passes with no product and no tile ring.
+        log(f"phase 2 sass: {fn} {json.dumps({k: c.get(k, 0) for k in FLASH_OPS})}")
+    # every forward build (K1 and K4's modes, both block sizes) must multiply
+    # on wgmma and load by TMA or cp.async; the backward's product kernel
+    # must hold ldmatrix or wgmma, and an async copy. The backward's pre- and
+    # post-kernels (delta and dq's scratch, dq's bf16 store) are elementwise
+    # passes with no product and no tile ring.
     bad = []
     for fn, c in ops.items():
         if not fn.startswith(("attn_fwd_kernel", "attn_bwd_kernel")):
             continue
-        mm = c["HGMMA"] if fn.startswith("attn_fwd") else c["HGMMA"] + c["LDSM"]
-        if not (mm and c["UTMALDG"] + c["LDGSTS"]):
+        mm = c.get("HGMMA", 0) + (0 if fn.startswith("attn_fwd") else c.get("LDSM", 0))
+        if not (mm and c.get("UTMALDG", 0) + c.get("LDGSTS", 0)):
             bad.append(fn)
-    kinds = {fn.split("<")[0] for fn in ops}
-    if bad or not {"attn_fwd_kernel", "attn_bwd_kernel"} <= kinds:
+    fwd = {f"attn_fwd_kernel<{r},{m}>" for r in BLOCKS for m in FWD_MODES}
+    if bad or not fwd | {"attn_bwd_kernel"} <= set(ops):
         raise AssertionError(f"phase 2: flash kernels without wgmma/async copies: {bad}, "
                              f"found {sorted(ops)}")
-    log("phase 2 ok: every K1/K2 product kernel issues HGMMA and LDGSTS/UTMALDG")
+    mufu = {fn: {k: v for k, v in c.items() if k.startswith("MUFU")}
+            for fn, c in ops.items() if fn.startswith("attn_fwd_kernel")}
+    log(f"phase 2 sass: the forward's MUFU instructions by build {json.dumps(mufu)}")
+    if not all(mufu[f"attn_fwd_kernel<{r},bf16exp>"].get("MUFU.EX2.BF16") for r in BLOCKS):
+        raise AssertionError("phase 2: a bf16exp build has no bf16 MUFU.EX2")
+    # K3: the polynomial cosine, so no MUFU.COS/SIN (__cosf) and none of the
+    # accurate cosf's slow path (local memory, a call)
+    k3 = _sass(build, "rff")
+    for fn, c in k3.items():
+        log(f"phase 2 sass: {fn} {c['instructions']} instructions, {c['loop']} in the row "
+            f"loop ({c['loop'] / K3_LOOP_OUTPUTS:.2f} per output), "
+            f"{json.dumps({k: c.get(k, 0) for k in K3_OPS})}")
+    slow = {fn: [k for k in c if k.startswith(K3_BANNED) or k.split(".")[0] in K3_BANNED]
+            for fn, c in k3.items()}
+    slow = {fn: ks for fn, ks in slow.items() if ks}
+    if slow or len(k3) != 2:
+        raise AssertionError(f"phase 2: K3 builds {sorted(k3)}, slow-path cosine in {slow}")
+    log("phase 2 ok: every forward (K1, K4) and K2 product kernel issues HGMMA and "
+        "LDGSTS/UTMALDG, bf16exp issues MUFU.EX2.BF16, K3 has no MUFU.COS/SIN, LDL, STL "
+        "or CALL")
 
 
-def _k4_mufu(build):
-    """{K4 mode: {MUFU opcode: count}} in the built library's SASS, by
-    cuobjdump (beside nvcc): where the bf16exp kernel evaluates its exp2."""
+FWD_MODES = ("exact", "bf16exp", "nomax")  # attn_fwd_kernel's MODE 0, 1, 2
+FLASH_OPS = ("HGMMA", "LDSM", "UTMALDG", "LDGSTS")
+K3_OPS = ("FFMA", "FMUL", "FRND", "F2FP", "LDG", "STG")
+K3_BANNED = ("MUFU.COS", "MUFU.SIN", "LDL", "STL", "CALL")
+K3_LOOP_OUTPUTS = 16  # one pass of K3's row loop: 2 rows of 8 features a thread
+
+
+def _kernel_name(sym: str):
+    """A readable name of one of the port's kernels from its mangled symbol:
+    attn_fwd_kernel<queries per block,mode>, rff_phi_kernel<store>."""
     import re
 
-    from cosa_tpu_torch.kernels.flash_variants import MODES
-
-    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", build._lib_path("flash_variants")],
-                          capture_output=True, text=True, check=True).stdout
-    out, mode = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : \S*attn_fwd_variant_kernelILi(\d)E", line)
-        if m:
-            mode = MODES[int(m.group(1))]
-            out[mode] = {}
-        m = re.search(r"\b(MUFU\.[A-Z0-9.]+)", line)
-        if m and mode:
-            out[mode][m.group(1)] = out[mode].get(m.group(1), 0) + 1
-    return out
+    m = re.search(r"\d((?:attn_[a-z_]+?|rff_phi)_kernel)"
+                  r"(?:I((?:Li\d+E|13__nv_bfloat16|f)+)E)?", sym)
+    if not m:
+        return None
+    args = []
+    for nwg, bf, f32 in re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", m.group(2) or ""):
+        if nwg:
+            args.append(str(64 * int(nwg)) if not args else FWD_MODES[int(nwg)])
+        else:
+            args.append("bf16" if bf else "f32")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
-SASS_OPS = ("HGMMA", "LDSM", "UTMALDG", "LDGSTS")
-
-
-def _flash_sass(build):
-    """{kernel of libflash: {opcode: count}} for SASS_OPS, by cuobjdump."""
+def _sass(build, lib: str):
+    """{kernel of one built library: {opcode: count}} by cuobjdump (beside
+    nvcc), counted both whole (MUFU.EX2.BF16) and by base name (HGMMA),
+    with the kernel's instruction count and the length of its longest loop
+    (a branch back to an earlier address)."""
     import re
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", build._lib_path("flash")],
+    sass = subprocess.run([tool, "-sass", build._lib_path(lib)],
                           capture_output=True, text=True, check=True).stdout
     out, fn = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*?\d(attn_[a-z_]+?_kernel)(?:ILi(\d)E)?", line)
+        m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
-            out[fn] = dict.fromkeys(SASS_OPS, 0)
+            fn = _kernel_name(m.group(1))
+            if fn:
+                out[fn] = {"instructions": 0, "loop": 0}
             continue
-        m = re.search(r"\b(" + "|".join(SASS_OPS) + r")\b", line)
-        if m and fn:
-            out[fn][m.group(1)] += 1
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
+        if not (m and fn):
+            continue
+        addr, op, rest = int(m.group(1), 16), m.group(2), m.group(3)
+        c = out[fn]
+        if op != "NOP":
+            c["instructions"] += 1
+        for k in {op, op.split(".")[0]}:
+            c[k] = c.get(k, 0) + 1
+        t = re.match(r"\s+(0x[0-9a-f]+)", rest)
+        if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+            c["loop"] = max(c["loop"], (addr - int(t.group(1), 16)) // 16 + 1)
     return out
 
 
@@ -240,7 +277,8 @@ def phase_kernels():
     Bounds, those of the TPU kernel test: K1 max |kernel - plain f32| <
     5e-3, K2 relative error < 1e-2, K3 (bf16 store) < 3e-4 against float64.
     K3's f32 store is held to 1e-5: its phases (|p| < 256 here) carry at
-    most 5 f32 roundings of 7.6e-6 each, times the scale 0.044, 1.7e-6.
+    most 5 f32 roundings of 7.6e-6 each, and its polynomial cosine up to
+    1.4e-5, times the scale 0.044, 2.3e-6.
     K4 max |kernel - plain f32| <= 1e-2 (its p is bf16, as the plain
     version's, but rounded at other points), cosine >= 0.9999 against K1's
     output on the same input."""
@@ -402,17 +440,24 @@ def phase_kernels():
         failures.append(f"K3 bf16: {err}")
     if not err32 < 1e-5:
         failures.append(f"K3 f32: {err32}")
-    ms = time_ms(lambda: rff.rff_phi(f, w, bb, sc))
-    plain = time_ms(lambda: rff.plain_rff_phi(f, w, bb, sc))
-    ms32 = time_ms(lambda: rff.rff_phi(f, w, bb, sc, torch.float32))
-    plain32 = time_ms(lambda: rff.plain_rff_phi(f, w, bb, sc, torch.float32))
     rows_n = 4 * 224 * 224
     nbytes = rows_n * 5 * 4 + 6 * 1024 * 4 + rows_n * 1024 * 2
     bms, by = bound_ms(nbytes, 10.0 * rows_n * 1024, PEAK_F32)
-    bms32, _ = bound_ms(nbytes + rows_n * 1024 * 2, 10.0 * rows_n * 1024, PEAK_F32)
-    log(f"  K3: kernel {ms:.4f} ms (one launch per training step), plain {plain:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}); "
-        f"f32 store {ms32:.4f} ms, plain {plain32:.4f} ms, bound {bms32:.4f} ms")
+    bms32, by32 = bound_ms(nbytes + rows_n * 1024 * 2, 10.0 * rows_n * 1024, PEAK_F32)
+    ms = time_ms(lambda: rff.rff_phi(f, w, bb, sc))
+    ms32 = time_ms(lambda: rff.rff_phi(f, w, bb, sc, torch.float32))
+    plain = time_ms(lambda: rff.plain_rff_phi(f, w, bb, sc))
+    plain32 = time_ms(lambda: rff.plain_rff_phi(f, w, bb, sc, torch.float32))
+    for dt, t, bd, pl in ((torch.bfloat16, ms, bms, plain), (torch.float32, ms32, bms32, plain32)):
+        nm = "bf16" if dt == torch.bfloat16 else "f32"
+        # the card's own write rate: one fill of an output of the same size
+        full = torch.empty((4, 224 * 224, 1024), dtype=dt, device="cuda")
+        fill = time_ms(lambda: full.fill_(0.5))
+        del full
+        log(f"  K3 {nm} store: kernel {t:.4f} ms (one launch per training step), "
+            f"bound {bd:.4f} ms ({by if dt == torch.bfloat16 else by32}), "
+            f"{bd / t:.3f} of the bound; a fill of the same output (fill_) {fill:.4f} ms; "
+            f"plain {pl:.4f} ms")
     rows.append(dict(
         name="rff_phi", route="cuda", source="cosa_tpu_torch/csrc/rff_phi.cu",
         replaces="cosa_tpu/kernels/rff.py:89", shape="(4, 50176, 5) f32 -> 1024 bf16",
@@ -420,7 +465,8 @@ def phase_kernels():
         library_ms=None,
     ))
 
-    # ---- K4, the two softmax variants, at the microbenchmark's B*H = 96
+    # ---- K4, the two softmax variants, at the microbenchmark's B*H = 96,
+    # each beside K1 at the same shape and block size
     bv = 8
     k4 = {m: [0.0, 1.0] for m in flash_variants.MODES}  # worst err, worst cos
     for n in (785, 1765):
@@ -443,16 +489,26 @@ def phase_kernels():
         qh, kh, vh = (t.reshape(bv, h, n, 64) for t in x)
         lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
         bms, by = bound_ms(4.0 * bv * h * n * 64 * 2, 4.0 * bv * h * n * n * 64, PEAK_BF16)
+        # in turns: K1, bf16exp, nomax, nomax, bf16exp, K1
+        turns = ("k1", *flash_variants.MODES, *reversed(flash_variants.MODES), "k1")
+        ms_by = {}
+        for mode in turns:
+            fn = (lambda: flash.attn_fwd(qkv, h, scale)) if mode == "k1" else (
+                lambda m=mode: flash_variants.attn_fwd_variant(qkv, h, scale, None, m))
+            ms_by.setdefault(mode, []).append(time_ms(fn))
+        ms_by = {m: statistics.mean(v) for m, v in ms_by.items()}
         for mode in flash_variants.MODES:
-            ms = time_ms(lambda: flash_variants.attn_fwd_variant(qkv, h, scale, None, mode))
+            ms = ms_by[mode]
             plain = time_ms(lambda: flash_variants.plain_attend_variant(
                 x[0], x[1], x[2], scale, None, mode))
-            log(f"  K4 {mode} N={n} B*H={bv * h}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+            log(f"  K4 {mode} N={n} B*H={bv * h}: kernel {ms:.4f} ms, K1 {ms_by['k1']:.4f} ms "
+                f"at the same {flash.block_rows(n)} queries per block ({ms / ms_by['k1']:.3f}x "
+                f"K1), plain {plain:.4f} ms, sdpa {lib:.4f} ms ({ms / lib:.2f}x), "
+                f"bound {bms:.4f} ms ({by})")
             if n == 785:
                 rows.append(dict(
                     name=f"flash_fwd_{mode}", route="cuda",
-                    source="cosa_tpu_torch/csrc/flash_variants.cu",
+                    source="cosa_tpu_torch/csrc/flash_attn.cu",
                     replaces="scripts/microbench_softmax.py:79",
                     shape=f"B*H={bv * h} N={n} D=64 bf16",
                     max_abs_err=k4[mode][0], ms=ms, plain_ms=plain,

@@ -1,11 +1,44 @@
 // Fused multi-head attention for the ViT encoder, forward (K1) and
-// backward (K2), hand-written for Hopper (sm_90a), plain C interface.
+// backward (K2), and the forward's two softmax variants (K4), hand-written
+// for Hopper (sm_90a), plain C interface.
 //
 // Replaces the JAX package's Pallas kernels cosa_tpu/kernels/flash.py:
-//   _fwd_kernel (via _attend_fwd / mha)  ->  attn_fwd_kernel
+//   _fwd_kernel (via _attend_fwd / mha)  ->  attn_fwd_kernel<NWG, EXACT>
 //   _bwd_kernel (via _attend_bwd)        ->  attn_bwd_pre_kernel +
 //                                            attn_bwd_kernel +
 //                                            attn_bwd_post_kernel
+// and scripts/microbench_softmax.py's attend_variant (Pallas body
+// _fwd_variant) -> attn_fwd_kernel<NWG, BF16EXP | NOMAX>: K1's mainloop,
+// ring, products and epilogue, with only the softmax swapped:
+//
+//   BF16EXP  p = exp2 of the bf16 rounding of (s * qscale - m), evaluated
+//            on bf16 pairs by the PTX instruction ex2.approx.ftz.bf16x2
+//            (cuda_bf16.h's h2exp2 in CUDA 12.8 unpacks the pair and runs
+//            two f32 ex2.approx instead). The pairs are one row's
+//            neighbouring keys, so the results are the PV product's
+//            register A operand as they are. The row sum l is an f32 sum of
+//            the bf16 p values, taken as the TPU kernel takes it: a product
+//            against a column of ones with f32 accumulation, one wgmma
+//            m64n8k16 per 16 keys on the same A registers (8 tensor-core
+//            instructions per tile, where unpacking and adding in f32 takes
+//            two ALU instructions per score). The running max and the
+//            rescale of o and l stay in f32. sm_90 still issues one MUFU per
+//            element of the pair (64 MUFU.EX2.BF16 per tile, as many as
+//            EXACT's MUFU.EX2). At 128 queries per block, under the
+//            128-register cap of two blocks per SM, this mode spills 84
+//            bytes (ptxas -v).
+//   NOMAX    p = exp2(s * qscale - 30) in f32: a fixed shift in place of
+//            the row max, no max pass and no rescale. l is the f32 sum of
+//            the f32 p; p is rounded to bf16 for the PV product. As in the
+//            TPU kernel there is no guard: p overflows f32 where s (in log2
+//            units) exceeds 30 + 128 = 158, i.e. a raw logit scale * q.k
+//            above about 109.5 ("|s| > ~120" in the JAX script's
+//            docstring), and a row whose every score lies below 30 - 149
+//            sums to 0 and divides by it.
+//
+// Neither variant writes the log-sum-exp (they have no backward). Keys at
+// or past n_valid and the ragged N edge are masked as in K1; the JAX
+// variant needs its caller to pad N to a multiple of 128, the port does not.
 //
 // What it computes, per (batch, head): o = softmax(scale * q k^T) v over the
 // keys below n_valid, with scores in f32 and the softmax on exp2, bf16
@@ -54,8 +87,9 @@
 //    N = 1024 and 128 above (kernels/flash.py::block_rows): chip_smoke.py
 //    times both at every shape the paths launch, and on an H100 SXM 64
 //    read faster at N = 197 and 785 (within 1% at 442) and 128 at N = 1226
-//    and 1765, at each B*H of 48 to 192. K2 takes 128 keys per block (two
-//    warpgroups) and 64-query tiles.
+//    and 1765, at each B*H of 48 to 192. K4 runs at K1's block size for
+//    the same N. K2 takes 128 keys per block (two warpgroups) and 64-query
+//    tiles.
 //  * The pipeline's prologue. The first tile's copy is not hidden: at
 //    N = 197 a query row has 2 key tiles in K1 (K2: 4 query tiles), so the
 //    copy of half (a quarter) of the data waits in the open; at N >= 785 it
@@ -92,6 +126,10 @@ constexpr int BKF = 128;       // forward: keys per ring stage
 constexpr int BQB = 64;        // backward: queries per ring stage
 constexpr int STAGES = 2;
 constexpr float NEG = -1e30f;
+// the forward's softmax: K1's, or one of K4's variants
+constexpr int EXACT = 0, BF16EXP = 1, NOMAX = 2;
+constexpr float NOMAX_SHIFT = 30.f;            // microbench_softmax.py:56
+constexpr uint32_t BF16X2_ONES = 0x3F803F80u;  // two bf16 1.0
 // dq's partial sums are added as 64-bit fixed point with 44 fraction bits:
 // integer adds are associative, so the sum is the same in any order
 constexpr float DQ_ONE = 17592186044416.f;        // 2^44
@@ -105,6 +143,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// exp2 of the bf16 roundings of (lo, hi), on bf16 pairs
+__device__ __forceinline__ uint32_t exp2_bf16x2(float lo, float hi) {
+  const uint32_t x = pack2(lo, hi);
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -264,6 +310,17 @@ __device__ __forceinline__ void wgmma_rs64(float d[32], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
 }
+
+// d[64 x 8] += A[64 x 16] (registers, as above) B[16 x 8] from shared memory.
+__device__ __forceinline__ void wgmma_rs8(float d[4], const uint32_t a[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 #undef R8
 
 // Accumulator layout of m64nN (per thread, i = 4 * j + e): row
@@ -283,23 +340,34 @@ __device__ __forceinline__ uint32_t align1k(uint32_t a) {
 }
 
 // ---------------------------------------------------------------- forward
-template <int NWG>
+// BF16EXP adds one 1 KB tile of bf16 ones: the B operand of l's product
+// (wgmma reads 8 rows of 128 B from it; every element is 1, so the
+// swizzle's order does not matter)
+template <int NWG, int MODE>
 struct FwdSmem {
   static constexpr int Q = NWG * 64 * ROW;
   static constexpr int KV = BKF * ROW;
-  static constexpr int BYTES = Q + STAGES * 2 * KV + 1024;
+  static constexpr int ONES = MODE == BF16EXP ? 1024 : 0;
+  static constexpr int BYTES = Q + STAGES * 2 * KV + ONES + 1024;
 };
 
-template <int NWG>
+// MODE: EXACT (K1, writes lse), BF16EXP or NOMAX (K4, lse unused)
+template <int NWG, int MODE>
 __global__ void __launch_bounds__(NWG * 128, NWG == 2 ? 2 : 3)
     attn_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                     float* __restrict__ lse, int N, int H, int n_valid,
                     float qscale) {
   constexpr int NT = NWG * 128;
-  typedef FwdSmem<NWG> L;
+  typedef FwdSmem<NWG, MODE> L;
   extern __shared__ uint8_t smem[];
   const uint32_t sQ = align1k(smem_u32(smem));
   const uint32_t sK0 = sQ + L::Q, sV0 = sK0 + STAGES * L::KV;
+  const uint32_t sOnes = sV0 + STAGES * L::KV;
+  if constexpr (MODE == BF16EXP) {  // visible to wgmma after the loop's fence
+    uint4* ones = reinterpret_cast<uint4*>(smem + (sOnes - smem_u32(smem)));
+    for (int c = threadIdx.x; c < L::ONES / 16; c += NT)
+      ones[c] = make_uint4(BF16X2_ONES, BF16X2_ONES, BF16X2_ONES, BF16X2_ONES);
+  }
 
   const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3;
   const int lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -326,6 +394,9 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 2 ? 2 : 3)
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+  // BF16EXP: l's accumulator of the ones product (m64n8: [0], [1] row g,
+  // [2], [3] row g + 8, each the whole row's sum)
+  float lacc[4] = {0.f, 0.f, 0.f, 0.f};
 
   for (int j = 0; j < T; ++j) {
     cp_async_wait<STAGES - 2>();
@@ -364,55 +435,104 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 2 ? 2 : 3)
       for (int i = 0; i < 32; ++i) {
         const int key = k0 + hf * 64 + 8 * (i >> 2) + 2 * t + (i & 1);
         if (ragged && key >= n_valid) s[hf][i] = NEG;
-        if (i & 2)
-          mx1 = fmaxf(mx1, s[hf][i]);
-        else
-          mx0 = fmaxf(mx0, s[hf][i]);
-      }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    mx0 = fmaxf(m0, mx0 * qscale);
-    mx1 = fmaxf(m1, mx1 * qscale);
-    const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int hf = 0; hf < BKF / 64; ++hf)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        if (i & 2) {
-          s[hf][i] = exp2f(fmaf(s[hf][i], qscale, -m1));
-          rs1 += s[hf][i];
-        } else {
-          s[hf][i] = exp2f(fmaf(s[hf][i], qscale, -m0));
-          rs0 += s[hf][i];
+        if constexpr (MODE != NOMAX) {
+          if (i & 2)
+            mx1 = fmaxf(mx1, s[hf][i]);
+          else
+            mx0 = fmaxf(mx0, s[hf][i]);
         }
       }
+    uint32_t pa[BKF / 16][4];  // P, the PV product's register A operand
+    if constexpr (MODE == NOMAX) {
+      // a fixed shift in place of the row max: no max pass, no rescale
+      float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? a1 : a0;
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
+      for (int hf = 0; hf < BKF / 64; ++hf)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          s[hf][i] = exp2f(fmaf(s[hf][i], qscale, -NOMAX_SHIFT));
+          if (i & 2)
+            rs1 += s[hf][i];
+          else
+            rs0 += s[hf][i];
+        }
+      l0 += rs0;
+      l1 += rs1;
+    } else {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      mx0 = fmaxf(m0, mx0 * qscale);
+      mx1 = fmaxf(m1, mx1 * qscale);
+      const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      if constexpr (MODE == EXACT) {
+        float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+        for (int hf = 0; hf < BKF / 64; ++hf)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            if (i & 2) {
+              s[hf][i] = exp2f(fmaf(s[hf][i], qscale, -m1));
+              rs1 += s[hf][i];
+            } else {
+              s[hf][i] = exp2f(fmaf(s[hf][i], qscale, -m0));
+              rs0 += s[hf][i];
+            }
+          }
+        l0 = l0 * a0 + rs0;
+        l1 = l1 * a1 + rs1;
+      } else {
+        // p on bf16 pairs of one row's neighbouring keys (acc_to_a's
+        // pairs: a[e] holds row g + 8 * (e & 1)), straight into A
+#pragma unroll
+        for (int kk = 0; kk < BKF / 16; ++kk) {
+          const float* sk = s[kk / 4] + 8 * (kk % 4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float m = (e & 1) ? m1 : m0;
+            pa[kk][e] = exp2_bf16x2(fmaf(sk[2 * e], qscale, -m),
+                                    fmaf(sk[2 * e + 1], qscale, -m));
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) lacc[e] *= (e & 2) ? a1 : a0;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? a1 : a0;
+    }
 
-    // O += P V: P from registers, V read MN-major (transposed) in place
-    uint32_t pa[BKF / 16][4];
+    // O += P V: P from registers, V read MN-major (transposed) in place;
+    // BF16EXP also l += P 1 on the same registers
+    if constexpr (MODE != BF16EXP) {
 #pragma unroll
-    for (int kk = 0; kk < BKF / 16; ++kk) acc_to_a(pa[kk], s[kk / 4], kk % 4);
+      for (int kk = 0; kk < BKF / 16; ++kk) acc_to_a(pa[kk], s[kk / 4], kk % 4);
+    }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKF / 16; ++kk)
       wgmma_rs64<1>(o, pa[kk], desc_mn(sV + kk * 16 * ROW));
+    if constexpr (MODE == BF16EXP) {
+#pragma unroll
+      for (int kk = 0; kk < BKF / 16; ++kk)
+        wgmma_rs8(lacc, pa[kk], desc_k(sOnes));
+    }
     wgmma_commit();
     wgmma_wait<0>();
   }
   cp_async_wait<0>();
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if constexpr (MODE == BF16EXP) {
+    l0 = lacc[0];
+    l1 = lacc[2];
+  } else {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int na = q0 + wg * 64 + w * 16 + g, nb = na + 8;
 #pragma unroll
@@ -427,9 +547,11 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 2 ? 2 : 3)
                                    d) =
           pack2(o[4 * jn + 2] * inv1, o[4 * jn + 3] * inv1);
   }
-  if (t == 0) {
-    if (na < N) lse[(size_t)bh * N + na] = m0 + log2f(l0);
-    if (nb < N) lse[(size_t)bh * N + nb] = m1 + log2f(l1);
+  if constexpr (MODE == EXACT) {
+    if (t == 0) {
+      if (na < N) lse[(size_t)bh * N + na] = m0 + log2f(l0);
+      if (nb < N) lse[(size_t)bh * N + nb] = m1 + log2f(l1);
+    }
   }
 }
 
@@ -697,15 +819,32 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <int NWG>
+template <int NWG, int MODE>
 cudaError_t launch_fwd(const bf16* qkv, bf16* out, float* lse, int B, int N,
                        int H, int n_valid, float qscale, cudaStream_t stream) {
-  static cudaError_t set = allow_smem(attn_fwd_kernel<NWG>, FwdSmem<NWG>::BYTES);
+  typedef FwdSmem<NWG, MODE> L;
+  static cudaError_t set = allow_smem(attn_fwd_kernel<NWG, MODE>, L::BYTES);
   if (set != cudaSuccess) return set;
   dim3 grid((N + NWG * 64 - 1) / (NWG * 64), B * H);
-  attn_fwd_kernel<NWG><<<grid, NWG * 128, FwdSmem<NWG>::BYTES, stream>>>(
+  attn_fwd_kernel<NWG, MODE><<<grid, NWG * 128, L::BYTES, stream>>>(
       qkv, out, lse, N, H, n_valid, qscale);
   return cudaGetLastError();
+}
+
+// block: queries per block, 64 or 128 (kernels/flash.py::block_rows)
+template <int MODE>
+int launch_fwd_rows(const void* qkv, void* out, void* lse, int B, int N,
+                    int H, int n_valid, float scale, int block,
+                    cudaStream_t stream) {
+  const float qscale = scale * 1.4426950408889634f;
+  const bf16* q = static_cast<const bf16*>(qkv);
+  bf16* o = static_cast<bf16*>(out);
+  float* l = static_cast<float*>(lse);
+  if (block == 128)
+    return (int)launch_fwd<2, MODE>(q, o, l, B, N, H, n_valid, qscale, stream);
+  if (block == 64)
+    return (int)launch_fwd<1, MODE>(q, o, l, B, N, H, n_valid, qscale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -713,15 +852,23 @@ cudaError_t launch_fwd(const bf16* qkv, bf16* out, float* lse, int B, int N,
 extern "C" {
 
 // qkv (B, N, 3, H, 64) bf16 -> out (B, N, H, 64) bf16, lse (B, H, N) f32.
-// block: queries per block, 64 or 128 (kernels/flash.py::block_rows).
 int cosa_attn_fwd(const void* qkv, void* out, void* lse, int B, int N, int H,
                   int n_valid, float scale, int block, cudaStream_t stream) {
-  const float qscale = scale * 1.4426950408889634f;
-  const bf16* q = static_cast<const bf16*>(qkv);
-  bf16* o = static_cast<bf16*>(out);
-  float* l = static_cast<float*>(lse);
-  if (block == 128) return (int)launch_fwd<2>(q, o, l, B, N, H, n_valid, qscale, stream);
-  if (block == 64) return (int)launch_fwd<1>(q, o, l, B, N, H, n_valid, qscale, stream);
+  return launch_fwd_rows<EXACT>(qkv, out, lse, B, N, H, n_valid, scale, block,
+                                stream);
+}
+
+// K4: qkv (B, N, 3, H, 64) bf16 -> out (B, N, H, 64) bf16 with a softmax
+// variant, mode 0 = bf16exp, 1 = nomax (kernels/flash_variants.py::MODES).
+int cosa_attn_fwd_variant(const void* qkv, void* out, int B, int N, int H,
+                          int n_valid, float scale, int mode, int block,
+                          cudaStream_t stream) {
+  if (mode == 0)
+    return launch_fwd_rows<BF16EXP>(qkv, out, nullptr, B, N, H, n_valid, scale,
+                                    block, stream);
+  if (mode == 1)
+    return launch_fwd_rows<NOMAX>(qkv, out, nullptr, B, N, H, n_valid, scale,
+                                  block, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,11 @@
 """Attention forward with the softmax variants of the JAX package's softmax
 microbenchmark: kernel K4 and its plain PyTorch version.
 
-The kernel lives in ``csrc/flash_variants.cu`` and replaces the Pallas
-``attend_variant`` (``_fwd_variant``) of scripts/microbench_softmax.py. It
-is K1's forward with one of two softmax variants:
+The kernel replaces the Pallas ``attend_variant`` (``_fwd_variant``) of
+scripts/microbench_softmax.py. It is K1 itself (``csrc/flash_attn.cu``,
+``attn_fwd_kernel`` with its ``MODE`` template argument): the same tile
+ring, products, epilogue and block size at each N, with one of two softmax
+variants:
 
   * ``bf16exp``: exp2 evaluated on bf16 (s - m), the row sum in f32;
   * ``nomax``: exp2(s - 30) in f32, a fixed shift in place of the row max.
@@ -21,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from cosa_tpu_torch.kernels.flash import HEAD_DIM, _check, _dims
+from cosa_tpu_torch.kernels.flash import HEAD_DIM, _check, _dims, block_rows
 
 MODES = ("bf16exp", "nomax")
 LOG2E = 1.4426950408889634
@@ -37,10 +39,10 @@ _TYPED = []  # libraries whose C signature is set
 def _lib():
     from cosa_tpu_torch.kernels.build import load
 
-    lib = load("flash_variants")
+    lib = load("flash")
     if lib not in _TYPED:
         lib.cosa_attn_fwd_variant.argtypes = [_VP, _VP] + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, _VP]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, _VP]
         lib.cosa_attn_fwd_variant.restype = ctypes.c_int
         _TYPED.append(lib)
     return lib
@@ -83,14 +85,15 @@ def plain_attend_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attn_fwd_variant(qkv: torch.Tensor, num_heads: int, scale: float,
                      n_valid: Optional[int], mode: str) -> torch.Tensor:
-    """K4. qkv (B, N, 3*H*64) bf16 on the card -> o (B, N, H*64) bf16."""
+    """K4. qkv (B, N, 3*H*64) bf16 on the card -> o (B, N, H*64) bf16, at
+    K1's block size for this N."""
     mi = _mode_index(mode)
     b, n, nv = _dims(qkv, num_heads, n_valid)
     _check("qkv", qkv, qkv.shape)
     out = torch.empty((b, n, num_heads * HEAD_DIM), dtype=qkv.dtype, device=qkv.device)
     err = _lib().cosa_attn_fwd_variant(
         qkv.data_ptr(), out.data_ptr(), b, n, num_heads, nv, float(scale), mi,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
+        block_rows(n), torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"cosa_attn_fwd_variant failed: cudaError_t {err}")

@@ -7,7 +7,8 @@ absent, with:
 
 Bounds: K1 max abs error < 5e-3 against the plain f32 version, K2
 relative error < 1e-2 (and two K2 calls agree bitwise), K3 < 3e-4
-against float64 with a bf16 store and < 1e-5 with an f32 store, K4 max
+against float64 with a bf16 store and < 1e-5 with an f32 store (its
+polynomial cosine within 1e-6 of the same polynomial in torch), K4 max
 abs error <= 1e-2 against its plain version with a cosine >= 0.9999
 against K1 (chip_smoke.py holds the same kernels at the main path's
 shapes)."""
@@ -173,13 +174,17 @@ def test_flash_fwd_at_the_eval_token_counts(gpu, n, nv):
     assert float((o.float() - ref.reshape(b, n, h * 64)).abs().max()) < 5e-3
 
 
-@pytest.mark.parametrize("n,nv", [(130, None), (200, 163), (785, None)])
+@pytest.mark.parametrize("n,nv", [(64, None), (128, None), (130, None), (200, 163),
+                                  (785, None)])
 @pytest.mark.parametrize("mode", ["bf16exp", "nomax"])
-def test_flash_variant_kernel_matches_plain(gpu, mode, n, nv):
-    """K4 against its plain version in f32 (max abs <= 1e-2) and against K1
-    on the same input (cosine >= 0.9999)."""
+@pytest.mark.parametrize("rows", [64, 128])
+def test_flash_variant_kernel_matches_plain(gpu, monkeypatch, rows, mode, n, nv):
+    """K4 at both of K1's block sizes and at the edges of its tiles, against
+    its plain version in f32 (max abs <= 1e-2) and against K1 at the same
+    block size on the same input (cosine >= 0.9999)."""
     from cosa_tpu_torch.kernels import flash, flash_variants
 
+    monkeypatch.setattr(flash, "BLOCK_128_ABOVE", -1 if rows == 128 else 1 << 30)
     b, h = 2, 3
     g = torch.Generator(device=gpu).manual_seed(n)
     qkv = torch.randn((b, n, 3 * h * 64), generator=g, device=gpu).to(torch.bfloat16)
@@ -193,6 +198,50 @@ def test_flash_variant_kernel_matches_plain(gpu, mode, n, nv):
     k1 = flash.attn_fwd(qkv, h, 0.125, nv)[0].float()
     cos = float((o.float() * k1).sum() / (o.float().norm() * k1.norm()))
     assert cos >= 0.9999
+
+
+@pytest.mark.parametrize("d", [256, 1024])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-4), (torch.float32, 1e-5)])
+def test_rff_kernel_at_a_ragged_row_count(gpu, dtype, tol, d):
+    """K3 over 50001 rows against float64: no multiple of a block's 2 or 8
+    rows, and more than twice the grid's stride (the resident blocks times
+    a block's rows, at most 132 * 8 * 8 at D = 256), so every thread runs
+    the two-row loop and some take the odd last row. And the kernel's
+    cosine (f32 store, scale 1, the phase p itself: w = e_0, b = 0) against
+    the polynomial in torch on the same phases. Within 1e-6 at |p| <= pi,
+    where both take r = p (FMAs against separate roundings in the
+    polynomial); at |p| <= 256 within 1.6e-5: the kernel forms
+    r = p - 2 pi k in one FMA, torch rounds the product 2 pi k (< 512)
+    first, half an ulp of it, 1.53e-5, apart."""
+    from cosa_tpu_torch.kernels import rff
+    from cosa_tpu_torch.ops.bilateral import _rff_params
+
+    rows = 50_001
+    props = torch.cuda.get_device_properties(gpu)
+    threads_per_block, groups = 256, d // 8
+    stride = (props.multi_processor_count * props.max_threads_per_multi_processor
+              // threads_per_block) * (threads_per_block // groups)
+    assert rows > 2 * stride and rows % 2
+    rng = np.random.default_rng(d)
+    f = np.concatenate([rng.uniform(0, 4.5, (1, rows, 2)),
+                        rng.uniform(0, 17, (1, rows, 3))], axis=-1).astype(np.float32)
+    w, b = _rff_params(d, 5, 0)
+    sc = math.sqrt(2 / d)
+    phi = rff.rff_phi(torch.from_numpy(f).to(gpu), torch.from_numpy(w).to(gpu),
+                      torch.from_numpy(b).to(gpu), sc, dtype)
+    ref = sc * np.cos(f.astype(np.float64) @ w + b)
+    assert phi.dtype == dtype and phi.shape == (1, rows, d)
+    assert np.abs(phi.float().cpu().numpy() - ref).max() < tol
+
+    we = torch.zeros((5, d), device=gpu)
+    we[0] = 1.0
+    for lim, bound in ((math.pi, 1e-6), (256.0, 1.6e-5)):
+        p = torch.from_numpy(rng.uniform(-lim, lim, (1, rows)).astype(np.float32)).to(gpu)
+        fp = torch.zeros((1, rows, 5), device=gpu)
+        fp[..., 0] = p
+        cos = rff.rff_phi(fp, we, torch.zeros(d, device=gpu), 1.0, torch.float32)
+        want = rff.plain_cos_poly(p)[..., None].expand(1, rows, d)
+        assert float((cos - want).abs().max()) <= bound
 
 
 def test_crf_bilateral_product_needs_f32(gpu):
