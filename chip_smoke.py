@@ -30,7 +30,23 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      step-2 checkpoint held to the straight run's losses; exact launch
      counts for each of the three;
   7. the softmax microbenchmark (cli/microbench_softmax.py), K4's path;
-  8. print the kernels' JSON line, then the device JSON line last.
+  8. the opt-in training path at the same width: a ShapesWSSS tree in the
+     VOC12 layout (cosa_tpu_torch/data/synthwsss.py), read as VOC12; the
+     permutohedral-lattice energy, GMM thresholds, PAR and a reference-key
+     pretrained .pth written here from a model seeded apart from the run; 4
+     steps with 2 validations and a run resumed from step 2, exact launch
+     counts (no RFF launch), the weights loaded, the thresholds moved, the
+     resumed gap; the lattice on the card against the native C++ lattice
+     on the host, twice against itself (bitwise), and its build against
+     the CPU's build;
+  9. the host CRF backends on phase 8's best-seg weights: evaluate with
+     crf_backend "native" (the C++ lattice on the host) and "jax" at
+     crf_reduce 1 (the lattice on the card), their labels held together;
+ 10. print the kernels' JSON line, then the device JSON line last.
+
+Phase 3 also times the opt-in path's torch ops (lattice build and apply,
+the GMM thresholds, one PAR refine) at that path's shapes, each beside its
+byte bound; they are no kernels and stay out of the kernels' JSON line.
 """
 
 from __future__ import annotations
@@ -523,6 +539,53 @@ def phase_kernels():
     return rows
 
 
+def phase_opt_in_ops(smi: str):
+    """The opt-in path's torch ops at its shapes, eager, by CUDA events,
+    each beside the least time its bytes take at 3.35 TB/s (inputs read
+    once, outputs written once): the energy lattice's build and apply at
+    (4, 224*224, 5) with 21 classes, the GMM thresholds on the (400, 784)
+    queue with 100 EM iterations, one PAR refine of (4, 224, 224, 21)."""
+    import torch
+
+    from cosa_tpu_torch.ops.gmm import gmm_thresholds
+    from cosa_tpu_torch.ops.par import par_refine
+    from cosa_tpu_torch.ops.permutohedral import apply_lattice, build_lattice
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n = 224 * 224
+    img = torch.randint(0, 256, (4, 224, 224, 3), generator=gen, device="cuda").float()
+    ys, xs = torch.meshgrid(torch.arange(224.0, device="cuda"),
+                            torch.arange(224.0, device="cuda"), indexing="ij")
+    feats = torch.cat([torch.stack([xs, ys], -1).expand(4, -1, -1, -1) / 50.0, img / 15.0],
+                      dim=-1).reshape(4, n, 5)
+    vals = torch.softmax(torch.randn((4, n, 21), generator=gen, device="cuda"), dim=-1)
+    lat = build_lattice(feats)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    rows = [
+        ("lattice build (4, 50176, 5)", lambda: build_lattice(feats), nbytes(feats, *lat), 5),
+        ("lattice apply (4, 50176, 21)", lambda: apply_lattice(lat, vals),
+         nbytes(vals, vals, *lat), 10),
+    ]
+    queue = torch.rand((400, 784), generator=gen, device="cuda")
+    rows.append(("gmm_thresholds (400, 784), 100 EM iterations",
+                 lambda: gmm_thresholds(queue, 0.05, 3, 100, 8), nbytes(queue) + 8, 5))
+    imgs = torch.rand((4, 224, 224, 3), generator=gen, device="cuda")
+    masks = torch.softmax(torch.randn((4, 224, 224, 21), generator=gen, device="cuda"), -1)
+    rows.append(("par_refine (4, 224, 224, 21), 10 sweeps of 48 shifts",
+                 lambda: par_refine(imgs, masks), nbytes(imgs, masks, masks), 3))
+    out = {}
+    for name, fn, nb, reps in rows:
+        ms = time_ms(fn, reps=reps, warmup=1, graph=False)
+        bms = nb / PEAK_BYTES * 1e3
+        out[name] = ms
+        log(f"phase 3 torch op {name}: {ms:.4f} ms, byte bound {bms:.4f} ms "
+            f"({nb / 1e6:.1f} MB), {bms / ms:.4f} of the bound, on {smi}")
+    return out
+
+
 def _main_cfg(**kw):
     from cosa_tpu_torch.config import preset_config
 
@@ -802,6 +865,235 @@ def phase_scoring(smi: str):
             gap = max(gap, abs(a - b) / abs(b) if b else 0.0)
     log(f"phase 6 ok: resumed steps 3-4 within {gap:.3e} relative of the straight "
         f"run's losses (bound 5e-3); every mIoU finite in [0, 1]")
+    return counts, t
+
+
+OPTIN_TRAIN, OPTIN_VAL = 32, 16  # ShapesWSSS images of phase 8's tree
+PRETRAINED_SEED = 4242  # the pretrained file's model, seeded apart from the run
+
+
+def _optin_cfg(root, **kw):
+    """Phase 8's configuration: the VOC default at full width on a
+    ShapesWSSS tree, with the lattice energy, GMM and PAR."""
+    base = dict(
+        backbone="vit_base_patch16_224", crop_size=448, batch_size=4, mixed_precision=True,
+        data_root=root, split_dir=os.path.join(root, "splits"), max_iters=4, warmup_iters=2,
+        lr_warmup_iters=2, log_iters=1, eval_iters=2, fasteval=True, fasteval_n=OPTIN_VAL,
+        finalval=False, energy_filter="lattice", usegmm=True, usepar=True,
+        work_dir=os.path.join(ROOT, "build", "chip_smoke"),
+    )
+    base.update(kw)
+    from cosa_tpu_torch.config import preset_config
+
+    return preset_config("VOC12", **base)
+
+
+@contextmanager
+def _patched(module, name, wrap):
+    """``module.name`` replaced by ``wrap(original)`` inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def phase_optin(smi: str):
+    """The opt-in training path (phase 8). Returns each run's launch counts,
+    the run's directory and configuration."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import cosa_tpu_torch.objectives.energy as energy_mod
+    import cosa_tpu_torch.train.loop as loop_mod
+    from cosa_tpu_torch.cli import make_synth_data
+    from cosa_tpu_torch.models.network import build_model
+    from cosa_tpu_torch.native.build import lattice_gaussian_cpu
+    from cosa_tpu_torch.ops.permutohedral import apply_lattice, build_lattice
+
+    root = os.path.join(ROOT, "build", "chip_smoke", "shapes_voc")
+    shutil.rmtree(root, ignore_errors=True)
+    make_synth_data.main(["--root", root, "--n_train", str(OPTIN_TRAIN),
+                          "--n_val", str(OPTIN_VAL), "--seed", "0"])
+    pre = os.path.join(ROOT, "build", "chip_smoke", "pretrained.pth")
+    cfg = _optin_cfg(root, name="optin", pretrained_path=pre)
+    torch.save(build_model(cfg, "cpu", seed=PRETRAINED_SEED).state_dict(), pre)
+    out = loop_mod.output_dir(cfg)
+    cfg_r = cfg.replace(name="optin_resume", resume=os.path.join(out, "ckpt", "step_00000002.pt"))
+    for d in (out, loop_mod.output_dir(cfg_r)):
+        shutil.rmtree(d, ignore_errors=True)
+    per_val = 2 * -(-OPTIN_VAL // cfg.eval_batch) * 12 * len(cfg.eval_scales)
+
+    loaded, first, thre = [], {}, {"optin": [], "optin_resume": []}
+
+    def checking(load):  # before step 1: both encoders hold the file's weights
+        def fn(c, state):
+            load(c, state)
+            sd = torch.load(pre, map_location="cpu", weights_only=True)
+            for model in (state.student, state.teacher):
+                own = model.state_dict()
+                loaded.append(all(torch.equal(own[k].cpu(), v) for k, v in sd.items()
+                                  if k.startswith("encoder.")))
+            return state
+        return fn
+
+    def first_feats(build):
+        def fn(feats):
+            first.setdefault("feats", feats.clone())
+            return build(feats)
+        return fn
+
+    def first_values(apply):
+        def fn(lat, values, *a, **kw):
+            first.setdefault("values", values.detach().clone())
+            return apply(lat, values, *a, **kw)
+        return fn
+
+    def thresholds(into):  # each step's (low, high) as the step logs them
+        def wrap(build):
+            def build_step(c):
+                step = build(c)
+
+                def fn(state, batch):
+                    m = step(state, batch)
+                    into.append(torch.stack([m["thre_low"], m["thre_high"]]).clone())
+                    return m
+                return fn
+            return build_step
+        return wrap
+
+    counts = {}
+
+    def run(tag, c, **want):
+        _reset_counts()
+        with _patched(loop_mod, "build_train_step", thresholds(thre[tag])):
+            res = loop_mod.train(c, device="cuda")
+        torch.cuda.synchronize()
+        counts[tag] = _counts()
+        if counts[tag] != _want(**want):
+            raise AssertionError(f"phase 8 {tag}: launch counts {counts[tag]} != {_want(**want)}")
+        return res
+
+    with _patched(loop_mod, "load_pretrained_into_state", checking), \
+            _patched(energy_mod, "build_lattice", first_feats), \
+            _patched(energy_mod, "apply_lattice", first_values):
+        res = run("optin", cfg, flash_fwd=48 * 4 + 2 * per_val, flash_bwd=12 * 4)
+    if loaded != [True, True]:
+        raise AssertionError(f"phase 8: pretrained encoder weights in student, teacher: {loaded}")
+    recs = res["records"]
+    for r in recs:
+        if not all(math.isfinite(r[k]) for k in loop_mod.LOSS_KEYS):
+            raise AssertionError(f"phase 8: non-finite loss at iter {r['iter']}: {r}")
+    if not all(r["reg_loss"] != 0.0 for r in recs if r["iter"] > cfg.warmup_iters):
+        raise AssertionError(f"phase 8: zero reg_loss after warmup: {recs}")
+    low, high = (float(v) for v in thre["optin"][0].cpu())
+    if not (0.0 < low < high < 1.0 and (low, high) != (cfg.low_thre, cfg.high_thre)):
+        raise AssertionError(f"phase 8: thresholds after step 1: low {low}, high {high}")
+    log(f"phase 8 opt-in run: pretrained weights in both encoders before step 1; thresholds "
+        f"after step 1 low {low:.6f} high {high:.6f} (fixed {cfg.low_thre}, "
+        f"{cfg.high_thre}); launches {counts['optin']}")
+
+    resumed = run("optin_resume", cfg_r, flash_fwd=48 * 2 + per_val, flash_bwd=12 * 2)
+    if [r["iter"] for r in resumed["records"]] != [3, 4]:
+        raise AssertionError(f"phase 8 resume: steps {[r['iter'] for r in resumed['records']]}")
+    straight = {r["iter"]: r for r in recs}
+    gap = 0.0
+    pairs = [(r[k], straight[r["iter"]][k])
+             for r in resumed["records"] for k in loop_mod.LOSS_KEYS]
+    pairs += list(zip(torch.cat(thre["optin_resume"]).tolist(),
+                      torch.cat(thre["optin"][2:]).tolist()))
+    for a, b in pairs:
+        if not abs(a - b) <= 5e-3 * abs(b):
+            raise AssertionError(f"phase 8 resume: {a} vs {b}")
+        gap = max(gap, abs(a - b) / abs(b) if b else 0.0)
+    resumed_times = ", ".join(f"{r['itertime']:.4f}" for r in resumed["records"])
+    log(f"phase 8 sec/iter: median {statistics.median(r['itertime'] for r in recs[1:]):.4f} s "
+        f"over steps 2-4, resumed steps 3-4 {resumed_times} s, on {smi}")
+
+    # the lattice on the card against the native C++ lattice on the host, on
+    # the first batch's energy features and probabilities; twice on the card
+    feats, vals = first["feats"], first["values"]
+    lat, lat2 = build_lattice(feats), build_lattice(feats)
+    card, again = apply_lattice(lat, vals), apply_lattice(lat2, vals)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(lat, lat2)) and torch.equal(card, again)
+    f_np, v_np = feats.cpu().numpy(), vals.cpu().numpy()
+    host = np.stack([lattice_gaussian_cpu(f_np[i], v_np[i]) for i in range(f_np.shape[0])])
+    rel = float(np.linalg.norm(card.cpu().numpy() - host) / np.linalg.norm(host))
+    log(f"phase 8 lattice: card vs native C++ relative error {rel:.3e} (bound 1e-4) on "
+        f"{tuple(vals.shape)}; two builds and applies on the card bitwise equal: {same}")
+    if not (rel < 1e-4 and same):
+        raise AssertionError(f"phase 8 lattice: rel err {rel}, bitwise repeatable {same}")
+    # the first image's lattice built on the card against the CPU's build.
+    # Its flat-coloured shapes put points on exact ties of the simplex
+    # ranks, which the card's f32 embedding may break the other way: such
+    # a point takes another vertex at (near) zero weight, so the structure
+    # is reported and the filters are held together
+    card1, cpu1 = build_lattice(feats[0]), build_lattice(feats[0].cpu())
+    fields = ("uid", "nbr_idx", "nbr_ok", "order", "counts")
+    unequal = [n for n in fields if not torch.equal(getattr(card1, n).cpu(), getattr(cpu1, n))]
+    moved = int((card1.uid.cpu() != cpu1.uid).any(dim=-1).sum())
+    bary_gap = float((card1.bary.cpu() - cpu1.bary).abs().max())
+    f_card = apply_lattice(card1, vals[0]).cpu()
+    f_cpu = apply_lattice(cpu1, vals[0].cpu())
+    rel1 = float(torch.linalg.norm(f_card - f_cpu) / torch.linalg.norm(f_cpu))
+    log(f"phase 8 lattice: card vs CPU build of image 0: fields unequal {unequal}, points "
+        f"with another vertex {moved} of {feats.shape[1]}, bary max abs gap {bary_gap:.3e}; "
+        f"filter relative error {rel1:.3e} (bound 1e-5)")
+    if not rel1 < 1e-5:
+        raise AssertionError(f"phase 8 lattice: card vs CPU build, filter rel err {rel1}")
+    log(f"phase 8 ok: resumed steps 3-4 within {gap:.3e} relative of the straight run's "
+        f"losses and thresholds (bound 5e-3); losses finite, reg_loss nonzero after warmup")
+    return counts, out, cfg
+
+
+def phase_host_crf(smi: str, out: str, cfg, device_time):
+    """Phase 9: evaluate phase 8's best-seg weights on 4 val images with the
+    CRF on the host (C++ lattice) and on the card (lattice, crf_reduce 1);
+    both backends' labels agree on > 0.98 of the pixels (the JAX package's
+    bound, tests/test_crf.py). Returns each run's launch counts."""
+    import numpy as np
+    import torch
+
+    import cosa_tpu_torch.eval.engine as engine_mod
+    from cosa_tpu_torch.data.loader import build_val_dataset
+    from cosa_tpu_torch.eval.engine import evaluate, score_names
+    from cosa_tpu_torch.models.network import build_model
+    from cosa_tpu_torch.train import checkpoint as ckpt
+
+    model = ckpt.load_best(out, "seg", build_model(cfg, "cuda"))
+    val_ds = build_val_dataset(cfg)
+    n_img = 4
+    labels, counts = {}, {}
+    for backend in ("native", "jax"):
+        c = cfg.replace(crf_backend=backend, crf_reduce=1)
+        into = labels[backend] = []
+        _reset_counts()
+        with _patched(engine_mod, "crf_refine_host", lambda f: _recording(f, into)):
+            res = evaluate(c, model, val_ds, getcrf=True, max_images=n_img, device="cuda")
+        torch.cuda.synchronize()
+        counts[f"crf_{backend}"] = _counts()
+        want = _want(flash_fwd=n_img * 12 * len(c.eval_scales))
+        if counts[f"crf_{backend}"] != want:
+            raise AssertionError(f"phase 9 {backend}: launch counts {counts[f'crf_{backend}']} "
+                                 f"!= {want}")
+        _check_scores(f"phase 9 {backend}", {k: res[k]["miou"] for k in score_names(res)})
+        t = res["time"]
+        log(f"phase 9 crf_backend {backend!r} (crf_reduce 1): {t['seconds'] / t['images']:.4f} "
+            f"s/image, CRF {t['crf_seconds'] / t['images']:.4f} s/image "
+            f"({t['crf_seconds'] / t['seconds']:.3f} of it), Seg_crf mIoU "
+            f"{res['Seg_crf']['miou']:.4f}, on {smi}; phase 6's device backend "
+            f"{device_time['seconds'] / device_time['images']:.4f} s/image, CRF "
+            f"{device_time['crf_seconds'] / device_time['images']:.4f}")
+    sizes = [a.numel() for a in labels["native"]]
+    agree = sum(int((a == b).sum()) for a, b in zip(labels["native"], labels["jax"])) / sum(sizes)
+    if len(labels["jax"]) != n_img or not agree > 0.98:
+        raise AssertionError(f"phase 9: native vs lattice CRF labels agree on {agree}")
+    log(f"phase 9 ok: native and on-card lattice CRF labels agree on {agree:.5f} of "
+        f"{sum(sizes)} pixels (bound 0.98); every mIoU finite in [0, 1]")
     return counts
 
 
@@ -847,15 +1139,19 @@ def main() -> int:
     kind, smi = phase_device()
     phase_build()
     rows = phase_kernels()
+    phase_opt_in_ops(smi)
     counts, convention = phase_main_path(smi)
     phase_flash_vs_plain(convention)
-    scoring = phase_scoring(smi)
+    scoring, device_time = phase_scoring(smi)
     mb_counts = phase_microbench()
+    optin, out, cfg = phase_optin(smi)
+    optin.update(phase_host_crf(smi, out, cfg, device_time))
     for r in rows:
         # launches on the kernel's own path: training for K1-K3, the
-        # microbenchmark for K4; the scoring path's runs beside them
+        # microbenchmark for K4; the scoring and opt-in paths' runs beside them
         r["launches"] = (mb_counts if r["name"].startswith("flash_fwd_") else counts)[r["name"]]
         r["scoring_launches"] = {tag: c[r["name"]] for tag, c in scoring.items()}
+        r["optin_launches"] = {tag: c[r["name"]] for tag, c in optin.items()}
         r["ok"] = True
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -161,9 +161,9 @@ class Config:
     # "device": exact-Gaussian mean-field on the device at 1/crf_reduce
     #   resolution of the evaluation canvas (eval/crf.py); the probabilities
     #   never leave the device.
-    # "native" (host C++ lattice at full resolution) and "jax" (the JAX
-    #   package's single-image path) are ROADMAP Queue 1 item 9: evaluate
-    #   raises for them.
+    # "native": the host C++ lattice at full resolution, one image at a time;
+    # "jax" (the JAX package's name): the single-image mean-field on the
+    #   device, the permutohedral lattice when crf_reduce is 1.
     crf_backend: str = "device"
 
     # ---- device knobs (the JAX package's TPU section, mapped to one GPU) --
@@ -211,8 +211,8 @@ class Config:
             )
         if self.profile_dir:
             raise NotImplementedError(
-                "profile_dir: tracing belongs to the H100 bench, ROADMAP "
-                "Queue 1 item 10"
+                "profile_dir: tracing belongs to the port's H100 bench, "
+                "ROADMAP Queue 1 item 10, a benchmark PR's work"
             )
         if self.dp not in (-1, 1) or self.tp != 1:
             raise NotImplementedError(

@@ -11,7 +11,10 @@ reference's evaluation_engine.py:11-297), for one GPU:
   * each image's CAM / aux-CAM / seg maps resized to its own ground-truth
     size and laid on the zero P x P canvas of the JAX package (P = 500 for
     VOC12, 640 otherwise), where the threshold filters and the DenseCRF
-    run: both downsample, and their results depend on the canvas;
+    run: both downsample, and their results depend on the canvas (the
+    host CRF backends, ``crf_backend`` "native" / "jax", instead refine
+    each image at its own size from its cropped seg probabilities, at
+    batch 1, as the JAX package does);
   * CAM, aux-CAM, Seg_ps and Seg_vd confusion matrices (+ one per threshold
     filter and head, + Seg_crf) accumulated on the device, fetched once at
     the end; the classification mAP per image.
@@ -31,7 +34,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from cosa_tpu_torch.eval.crf import crf_labels_device, require_device_backend
+from cosa_tpu_torch.eval.crf import crf_labels_device, crf_refine_host
 from cosa_tpu_torch.eval.metrics import scores_from_hist, torch_hist
 from cosa_tpu_torch.models.network import require_cosa_interface
 from cosa_tpu_torch.objectives.pseudo import (
@@ -102,14 +105,13 @@ def evaluate(
     if save_dir:
         raise NotImplementedError(
             "save_dir: evaluation visuals need utils/visualize.py, ROADMAP Queue 1 item 15")
-    if getcrf:
-        require_device_backend(cfg)
     dev = resolve_device(device)
     thresholds = tuple(threshold_filters or ())
     n = cfg.num_classes
     pad = 500 if cfg.dataset == "VOC12" else 640
     idxs = eval_indices(len(val_ds), max_images)
-    bsz = int(cfg.eval_batch)
+    # the host CRF backends take one image's probabilities at a time
+    bsz = 1 if getcrf and cfg.crf_backend != "device" else int(cfg.eval_batch)
     hists = torch.zeros((4 + 2 * len(thresholds) + int(getcrf), n, n),
                         dtype=torch.int64, device=dev)
     aps: List[float] = []
@@ -197,13 +199,18 @@ def _eval_batch(cfg, model, samples, pad, thresholds, getcrf, rawcam_dir, dev):
     if getcrf:
         _sync(dev)
         t = time.time()
-        img_c = torch.zeros((len(samples), pad, pad, 3), dtype=torch.float32, device=dev)
-        for i, (h, w) in enumerate(sizes):
-            img_c[i, :h, :w] = torch.from_numpy(samples[i]["image"]).to(dev)
         vd_probs = torch.softmax(seg_validation(r_seg, cls), dim=-1)
-        valid = box_mask(torch.tensor([[0, h, 0, w] for h, w in sizes], device=dev),
-                         pad, pad).to(torch.float32)
-        hs.append(torch_hist(gt, crf_labels_device(cfg, img_c, vd_probs, valid), n))
+        if cfg.crf_backend == "device":
+            img_c = torch.zeros((len(samples), pad, pad, 3), dtype=torch.float32, device=dev)
+            for i, (h, w) in enumerate(sizes):
+                img_c[i, :h, :w] = torch.from_numpy(samples[i]["image"]).to(dev)
+            valid = box_mask(torch.tensor([[0, h, 0, w] for h, w in sizes], device=dev),
+                             pad, pad).to(torch.float32)
+            hs.append(torch_hist(gt, crf_labels_device(cfg, img_c, vd_probs, valid), n))
+        else:  # one image (batch 1), its probabilities at its own size
+            (h, w), img = sizes[0], torch.from_numpy(samples[0]["image"]).to(dev)
+            lab = crf_refine_host(cfg, img, vd_probs[0, :h, :w])
+            hs.append(torch_hist(gt[0, :h, :w], lab, n))
         _sync(dev)
         crf_s = time.time() - t
     if rawcam_dir:

@@ -10,7 +10,9 @@ The inverse of the JAX package's ``network_params_from_torch``
   classifier (D, C-1)                    -> classifier.weight (C-1, D, 1, 1)
 
 The keys are the reference's, so a CoSA ``.pth`` also loads with plain
-``load_state_dict``.
+``load_state_dict``. :func:`load_pretrained_into_state` loads a
+reference-key or a timm-key ``.pth`` into the student and the teacher of a
+training state.
 """
 
 from __future__ import annotations
@@ -62,3 +64,39 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     for name in ("classifier", "aux_classifier"):
         sd[name + ".weight"] = _t(np.asarray(params[name]).T[:, :, None, None])
     return sd
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` state dict, read with ``weights_only=True``; a CoSA
+    ``best_*.pth`` container's ``model`` entry."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd["model"] if "model" in sd else sd
+
+
+def load_pretrained_into_state(cfg, state):
+    """Load ``cfg.pretrained_path`` into student AND teacher (the reference
+    builds both networks on the same pretrained backbone, main.py:45-46), as
+    the JAX package's loader for ``model="vit"`` (models/convert.py:318-354):
+    a reference-key ``.pth`` (``encoder.*`` plus heads) or a timm-key encoder
+    ``.pth``. Keys the network does not have are dropped (``strict=False``,
+    the JAX package's ``_filter_to``); every encoder tensor of the network
+    must be in the file. Returns ``state``."""
+    path = cfg.pretrained_path
+    if cfg.model != "vit":
+        raise NotImplementedError(
+            f"pretrained weights for model '{cfg.model}': the model zoo and its "
+            "loaders are ROADMAP Queue 1 items 16 and 19")
+    if path.endswith(".npz"):
+        raise NotImplementedError(
+            "an AugReg .npz checkpoint: its loader is ROADMAP Queue 1 item 16")
+    sd = load_torch_checkpoint(path)
+    if not any(k.startswith("encoder.") for k in sd):
+        sd = {"encoder." + k: v for k, v in sd.items()}  # timm's encoder keys
+    own = state.student.state_dict()
+    sd = {k: v for k, v in sd.items() if k in own}
+    missing = sorted(k for k in own if k.startswith("encoder.") and k not in sd)
+    if missing:
+        raise KeyError(f"{path} lacks encoder weights: {missing[:4]}")
+    for model in (state.student, state.teacher):
+        model.load_state_dict(sd, strict=False)
+    return state

@@ -1,8 +1,9 @@
 """Build + ctypes-load the native Gaussian-filter library.
 
 The library compiles with ``g++`` on first use into this package directory
-and binds through its plain C ABI. The port has no lattice of its own yet,
-so a failed build raises: there is nothing to fall back to.
+and binds through its plain C ABI. It backs the energy-convention
+calibration and the ``"native"`` CRF backend; a failed build raises, and
+nothing falls back to the port's torch lattice in its place.
 """
 
 from __future__ import annotations

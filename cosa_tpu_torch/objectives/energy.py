@@ -11,6 +11,10 @@ reference's ``DenseEnergyLoss`` (utils/seg_helper.py:191-230, 864-903):
   * loss = -(1/B) sum seg_roi * (G @ seg_roi) * Gate, with sigma_xy scaled
     by scale_factor, and the reference's ad-hoc gradient
     dL/dseg_roi = -2 g AS_gated / B (a ``torch.autograd.Function``).
+
+The filter G is the RFF surrogate (the default), the exact transform
+(test-only) or the permutohedral lattice, the reference's own filter,
+built from the same features once per call (once per train step).
 """
 
 from __future__ import annotations
@@ -25,51 +29,45 @@ from cosa_tpu_torch.ops.bilateral import (
     rff_gaussian_filter,
 )
 from cosa_tpu_torch.ops.image import denormalize_u8
+from cosa_tpu_torch.ops.permutohedral import apply_lattice, build_lattice
 from cosa_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 
 
-def _filter(seg_roi, feats, filter_kind, rff_features, rff_seed, half, convention):
-    b, h, w, k = seg_roi.shape
-    v = seg_roi.reshape(b, h * w, k)
-    f = feats.reshape(b, h * w, -1)
+def _filter_fn(feats, filter_kind, rff_features, rff_seed, half, convention):
+    """The energy's Gaussian filter, (B, N, K) values -> (B, N, K)."""
     if filter_kind == "exact":
-        out = exact_gaussian_filter(f, v)
-    elif filter_kind == "rff":
+        return lambda v: exact_gaussian_filter(feats, v)
+    if filter_kind == "rff":
         # the RFF surrogate rescaled by the calibrated ``convention`` into
         # the reference lattice's energy scale (resolve_energy_convention)
-        out = convention * rff_gaussian_filter(
-            f, v, n_features=rff_features, seed=rff_seed,
-            dtype=torch.bfloat16 if half else torch.float32,
-        )
-    elif filter_kind == "lattice":
-        raise NotImplementedError(
-            "energy_filter='lattice': the permutohedral lattice is ROADMAP "
-            "Queue 1 items 9 and 13"
-        )
-    else:
-        raise ValueError(filter_kind)
-    return out.reshape(b, h, w, k)
+        dtype = torch.bfloat16 if half else torch.float32
+        return lambda v: convention * rff_gaussian_filter(
+            feats, v, n_features=rff_features, seed=rff_seed, dtype=dtype)
+    if filter_kind == "lattice":
+        # the reference's own filter: built once, applied once
+        lat = build_lattice(feats)
+        return lambda v: apply_lattice(lat, v)
+    raise ValueError(filter_kind)
 
 
 class DenseEnergy(torch.autograd.Function):
     """loss = -<seg_roi, filter(seg_roi) * gate> / B, with the reference's
     gradient convention -2 g AS_gated / B for seg_roi (the ROI factor is
-    applied by the chain rule through seg_roi = probs * ROI upstream)."""
+    applied by the chain rule through seg_roi = probs * ROI upstream).
+    ``filter_fn`` maps (B, N, K) values to their filtered values."""
 
     @staticmethod
-    def forward(ctx, seg_roi, feats, gate, filter_kind, rff_features, rff_seed,
-                half, convention):
-        as_gated = _filter(seg_roi, feats, filter_kind, rff_features, rff_seed,
-                           half, convention) * gate
-        n = seg_roi.shape[0]
+    def forward(ctx, seg_roi, gate, filter_fn):
+        b, h, w, k = seg_roi.shape
+        as_gated = filter_fn(seg_roi.reshape(b, h * w, k)).reshape(b, h, w, k) * gate
         ctx.save_for_backward(as_gated)
-        ctx.n = n
-        return -(seg_roi * as_gated).sum() / n
+        ctx.n = b
+        return -(seg_roi * as_gated).sum() / b
 
     @staticmethod
     def backward(ctx, g):
         (as_gated,) = ctx.saved_tensors
-        return (-2.0 * g * as_gated / ctx.n,) + (None,) * 7
+        return -2.0 * g * as_gated / ctx.n, None, None
 
 
 def get_energy_loss(
@@ -93,10 +91,9 @@ def get_energy_loss(
     b, h, w, _ = img.shape
     probs = torch.softmax(seg_logits.to(torch.float32), dim=-1)
     rois = box_mask(img_box, h, w).to(torch.float32)
-    img255 = denormalize_u8(img)
 
     sh, sw = int(h * scale_factor), int(w * scale_factor)
-    s_img = resize_nearest(img255, (sh, sw))
+    s_img = resize_nearest(denormalize_u8(img), (sh, sw))
     s_probs = resize_bilinear(probs, (sh, sw))
     s_rois = resize_nearest(rois, (sh, sw))
     s_label = resize_nearest(label, (sh, sw))
@@ -108,9 +105,9 @@ def get_energy_loss(
 
     seg_roi = s_probs * s_rois[..., None]
     feats = pixel_features(s_img, sigma_rgb, sigma_xy * scale_factor).detach()
-    loss = DenseEnergy.apply(seg_roi, feats, gate, filter_kind, rff_features,
-                             rff_seed, half, float(convention))
-    return weight * loss
+    feats = feats.reshape(b, sh * sw, -1)
+    filter_fn = _filter_fn(feats, filter_kind, rff_features, rff_seed, half, float(convention))
+    return weight * DenseEnergy.apply(seg_roi, gate, filter_fn)
 
 
 def resolve_energy_convention(cfg, images_u8, device=None, n_probe: int = 2):

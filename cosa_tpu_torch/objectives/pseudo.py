@@ -177,12 +177,15 @@ def cam_to_label(
     return valid_cam, torch.where(inside, label, ign)
 
 
-def _threshold_argmax(cams_with_bkg, lab_bk, down, orig) -> torch.Tensor:
-    """softmax over present channels at low res -> upsample -> argmax."""
+def _threshold_argmax(cams_with_bkg, lab_bk, down, orig, refine_fn=None,
+                      images_down=None) -> torch.Tensor:
+    """softmax over present channels at low res -> (refine) -> upsample -> argmax."""
     x = resize_bilinear(cams_with_bkg, down) if down != orig else cams_with_bkg
     x = torch.where(lab_bk[:, None, None, :] == 0,
                     torch.full_like(x, NEG_INF), x)
     probs = torch.softmax(x.to(torch.float32), dim=-1)
+    if refine_fn is not None:
+        probs = refine_fn(images_down, probs)
     probs = resize_bilinear(probs, orig)
     return torch.argmax(probs, dim=-1).to(torch.int32)
 
@@ -191,25 +194,34 @@ def cam2mask(
     img_box: torch.Tensor,
     cams: torch.Tensor,
     cls_labels: torch.Tensor,
-    threshold_high: float,
-    threshold_low: float,
+    threshold_high,
+    threshold_low,
     downscale: int = 2,
     ignore_index: int = 255,
+    refine_fn: Optional[Callable] = None,
+    images: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """CAM -> hard pseudo mask (reference seg_helper.py:721-797), batched.
 
-    cams: (B,H,W,C-1) validated CAMs. Merge rule: start from the
-    high-threshold label; where high says bkg -> ignore; where both say
-    bkg -> bkg; outside the img_box -> ignore. (PAR refinement is ROADMAP
-    Queue 1 item 12.)"""
+    cams: (B,H,W,C-1) validated CAMs; the thresholds are floats or 0-d
+    tensors (the GMM's EMAs). ``refine_fn(images_down, probs)`` is the
+    optional PAR pass on the (B,h,w,C) probabilities at the downscaled
+    resolution; it needs ``images`` (B,H,W,3, denormalized to 0-1). Merge
+    rule: start from the high-threshold label; where high says bkg ->
+    ignore; where both say bkg -> bkg; outside the img_box -> ignore."""
     b, h, w, _ = cams.shape
     ones = torch.ones((b, h, w, 1), dtype=cams.dtype, device=cams.device)
     lab_bk = _with_bkg(cls_labels)
     down = (h // downscale, w // downscale) if downscale else (h, w)
-    hi = _threshold_argmax(
-        torch.cat([ones * threshold_high, cams], dim=-1), lab_bk, down, (h, w))
-    lo = _threshold_argmax(
-        torch.cat([ones * threshold_low, cams], dim=-1), lab_bk, down, (h, w))
+    images_down = None
+    if refine_fn is not None:
+        if images is None:
+            raise ValueError("cam2mask with refine_fn needs images")
+        images_down = resize_bilinear(images, down) if down != (h, w) else images
+    hi = _threshold_argmax(torch.cat([ones * threshold_high, cams], dim=-1), lab_bk,
+                           down, (h, w), refine_fn, images_down)
+    lo = _threshold_argmax(torch.cat([ones * threshold_low, cams], dim=-1), lab_bk,
+                           down, (h, w), refine_fn, images_down)
     ign = torch.full_like(hi, ignore_index)
     label = torch.where(hi == 0, ign, hi)
     label = torch.where((hi + lo) == 0, torch.zeros_like(hi), label)

@@ -24,12 +24,13 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _interp(x: torch.Tensor, size: Tuple[int, int], mode: str) -> torch.Tensor:
+def _interp(x: torch.Tensor, size: Tuple[int, int], mode: str,
+            align_corners: bool = False) -> torch.Tensor:
     if tuple(x.shape[1:3]) == tuple(size):
         return x
     y = F.interpolate(
         _nchw(x.to(torch.float32)), size=tuple(size), mode=mode,
-        align_corners=False, antialias=False,
+        align_corners=align_corners, antialias=False,
     )
     return _nhwc(y).to(x.dtype)
 
@@ -43,6 +44,12 @@ def resize_bilinear(
     ``torch.flip(resize_bilinear(x, size), dims=(-2,))``."""
     y = _interp(x, size, "bilinear")
     return torch.flip(y, dims=(-2,)) if flip_w else y
+
+
+def resize_bilinear_ac(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """NHWC bilinear resize with ``align_corners=True`` (PAR's mask resize,
+    reference models/PAR.py:66)."""
+    return _interp(x, size, "bilinear", align_corners=True)
 
 
 def resize_bicubic(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 Port of the JAX package's train/checkpoint.py with ``torch.save`` of state
 dicts in place of orbax. A training checkpoint holds the student, the EMA
-teacher, the optimizer, the step and the pseudo-label thresholds; the step
+teacher, the optimizer, the step and the GMM state (queues, pointer and
+threshold EMAs, so a resumed GMM run continues the same thresholds); the step
 is also the loader's position (``build_train_loader(..., skip_batches=
 step)`` replays the same data order). Files are written to a temporary name
 and moved into place, so a crash never leaves a torn checkpoint, and only
@@ -21,6 +22,8 @@ import re
 from typing import Dict, Optional
 
 import torch
+
+from cosa_tpu_torch.train.state import GMMState
 
 _STEP_FILE = re.compile(r"^step_(\d{8})\.pt$")
 
@@ -51,8 +54,8 @@ def save_state(directory: str, state, step: int, keep: int = 2) -> str:
         student=state.student.state_dict(),
         teacher=state.teacher.state_dict(),
         optimizer=state.optimizer.opt.state_dict(),
-        thre_low=float(state.thre_low),
-        thre_high=float(state.thre_high),
+        gmm=dict(ptr=int(state.gmm.ptr),
+                 **{k: getattr(state.gmm, k) for k in GMMState.TENSORS}),
     ), path)
     for old in _steps(directory)[:-max(int(keep), 1)]:
         os.remove(_step_path(directory, old))
@@ -78,8 +81,9 @@ def restore_state(path: str, state, step: Optional[int] = None):
     state.teacher.load_state_dict(ck["teacher"])
     state.optimizer.opt.load_state_dict(ck["optimizer"])
     state.step = int(ck["step"])
-    state.thre_low = float(ck["thre_low"])
-    state.thre_high = float(ck["thre_high"])
+    state.gmm.ptr = int(ck["gmm"]["ptr"])
+    for k in GMMState.TENSORS:
+        setattr(state.gmm, k, ck["gmm"][k].to(getattr(state.gmm, k).device))
     return state
 
 

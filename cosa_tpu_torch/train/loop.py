@@ -8,6 +8,8 @@
     (``log_val.txt``; best-seg / best-cam selection across both, reference
     main.py:348-374) and a full-state checkpoint;
   * ``resume`` from a checkpoint, continuing the loader's data order;
+  * pretrained weights (``cfg.pretrained_path``) loaded into student and
+    teacher before the first step;
   * on any exception, an emergency checkpoint of the state as it stands
     before the exception propagates (eager PyTorch updates the state in
     place: a failure inside the optimizer or EMA update of a step leaves
@@ -33,8 +35,8 @@ from cosa_tpu_torch.data.loader import (
     build_train_loader,
     build_val_dataset,
 )
-from cosa_tpu_torch.eval.crf import require_device_backend
 from cosa_tpu_torch.eval.engine import evaluate, score_names
+from cosa_tpu_torch.models.convert import load_pretrained_into_state, load_torch_checkpoint
 from cosa_tpu_torch.models.network import build_model, require_cosa_interface
 from cosa_tpu_torch.train import checkpoint as ckpt
 from cosa_tpu_torch.train.state import create_train_state
@@ -62,10 +64,6 @@ def train(cfg: Config, max_steps: Optional[int] = None, device=None) -> Dict:
     the logged records, the energy convention, the last validation's
     results and the best seg / CAM mIoU (-1 when nothing was validated)."""
     require_cosa_interface(cfg)
-    if cfg.pretrained and cfg.pretrained_path:
-        raise NotImplementedError(
-            "pretrained_path: loading pretrained weights into training is ROADMAP "
-            "Queue 1 item 7 (finaleval / cli.evaluate read a checkpoint there)")
     total = min(cfg.max_iters, max_steps or cfg.max_iters)
     if cfg.random_seed:
         import random as _random
@@ -79,7 +77,11 @@ def train(cfg: Config, max_steps: Optional[int] = None, device=None) -> Dict:
     writer.print(f"device: {dev} ({name})")
 
     state = create_train_state(cfg, dev)
-    writer.print("weights: random init (seeded); pretrained loading is not ported yet")
+    if cfg.pretrained and cfg.pretrained_path:
+        load_pretrained_into_state(cfg, state)
+        writer.print(f"loaded pretrained weights from {cfg.pretrained_path}")
+    else:
+        writer.print("weights: random init (seeded)")
     start_step = 0
     if cfg.resume:
         ckpt.restore_state(cfg.resume, state)
@@ -142,19 +144,22 @@ def _train_body(cfg, state, step_fn, loader, val_ds, writer, dev, out_dir,
     t_log = time.time()
     for n_iter in range(start_step, total):
         local_batch = next(loader)
-        metrics = step_fn(state, to_device(local_batch, dev))
+        batch = to_device(local_batch, dev)
+        metrics = step_fn(state, batch)
         pending.append(metrics)
         if (n_iter + 1) % cfg.log_iters == 0:
             # ONE device->host transfer for the whole window
             last = pending[-1]
             stacked = torch.stack([torch.stack([m[k] for k in LOSS_KEYS]) for m in pending])
             probs = torch.sigmoid(torch.stack([last["cls_logits"], last["cls_aux_logits"]]))
-            host = torch.cat([stacked.reshape(-1), probs.reshape(-1)]).cpu().numpy()
+            thre = torch.stack([last["thre_low"], last["thre_high"]])
+            host = torch.cat([stacked.reshape(-1), thre, probs.reshape(-1)]).cpu().numpy()
             nwin = len(pending)
             for row in host[: nwin * 6].reshape(nwin, 6):
                 meter.add(dict(zip(LOSS_KEYS, row)))
+            thre_low, thre_high = (float(v) for v in host[nwin * 6:nwin * 6 + 2])
             ncls = cfg.num_classes - 1
-            probs = host[nwin * 6:].reshape(2, -1, ncls)
+            probs = host[nwin * 6 + 2:].reshape(2, -1, ncls)
             labels = np.asarray(local_batch["cls_label"])
             cls_acc = float(np.mean(compute_mAP(labels, probs[0]) or [0.0]))
             cls_aux_acc = float(np.mean(compute_mAP(labels, probs[1]) or [0.0]))
@@ -167,8 +172,8 @@ def _train_body(cfg, state, step_fn, loader, val_ds, writer, dev, out_dir,
                 itertime=itertime,
                 imgs_per_sec=cfg.batch_size / itertime,
                 lr=last["lr"],
-                thre_low=round(last["thre_low"], 4),
-                thre_high=round(last["thre_high"], 4),
+                thre_low=round(thre_low, 4),
+                thre_high=round(thre_high, 4),
                 cls_acc=round(cls_acc, 3),
                 cls_aux_acc=round(cls_aux_acc, 3),
                 **{k: float(meter.pop(k)) for k in LOSS_KEYS},
@@ -241,22 +246,21 @@ def _run_validation(cfg, state, val_ds, writer, n_iter, out_dir, best_seg, best_
 def finaleval(cfg: Config, device=None) -> Dict:
     """Reference finaleval (main.py:401-433): the run's best-seg weights, or
     the reference-key checkpoint at ``cfg.pretrained_path``, scored on the
-    full val split with the DenseCRF, on ``device`` (default: the GPU)."""
+    full val split with the DenseCRF (``cfg.crf_backend``), on ``device``
+    (default: the GPU)."""
     if cfg.eval_split == "test":
         raise NotImplementedError(
             "eval_split='test': the eval-server submission dump is ROADMAP Queue 1 item 15")
-    require_device_backend(cfg)
     dev = resolve_device(device)
     out_dir = output_dir(cfg)
     writer = MetricWriter(out_dir)
     model = build_model(cfg, dev)
     if cfg.pretrained_path:
-        sd = torch.load(cfg.pretrained_path, map_location="cpu", weights_only=True)
-        model.load_state_dict(sd["model"] if "model" in sd else sd)  # CoSA best_*.pth
+        model.load_state_dict(load_torch_checkpoint(cfg.pretrained_path))
         writer.print(f"evaluating checkpoint {cfg.pretrained_path}")
     else:
         ckpt.load_best(out_dir, "seg", model)
-    if cfg.crf_reduce > 1:
+    if cfg.crf_backend == "device" and cfg.crf_reduce > 1:
         writer.print(
             f"note: Seg_crf uses the on-device mean-field at 1/{cfg.crf_reduce} "
             "resolution (exact Gaussian transform)")

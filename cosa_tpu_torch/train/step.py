@@ -2,7 +2,9 @@
 itself covering the reference's main.py:106-252):
 
   teacher multi-scale TTA  (weak image, no grad)
-  CAM -> pseudo mask       (batched cam2mask, main and aux heads)
+  GMM adaptive thresholds  (ring buffer + fixed-iteration EM, ``usegmm``)
+  CAM -> pseudo mask       (batched cam2mask, main and aux heads; PAR
+                            refinement with ``usepar``)
   seg -> CAM soft targets
   student forward/backward (strong image): cls, seg, cam and energy losses
   PolyWarmupAdamW update
@@ -10,8 +12,8 @@ itself covering the reference's main.py:106-252):
 
 Eager PyTorch updates the state in place: the step returns only its
 metrics. Each phase runs under a ``torch.profiler.record_function`` span
-(teacher_tta, pseudo_labels, student_forward, losses, energy, backward,
-optimizer, ema), which ``torch.profiler`` reads and which cost next to
+(teacher_tta, gmm, pseudo_labels, student_forward, losses, energy,
+backward, optimizer, ema), which ``torch.profiler`` reads and which cost next to
 nothing without one. Loss weighting (main.py:240-243): the
 cls losses are always on; seg/cam/reg are scaled by ``warmup_gate_floor``
 while step <= warmup_iters.
@@ -39,16 +41,51 @@ from cosa_tpu_torch.objectives.pseudo import (
     multi_scale_camseg,
     seg_refine_by_label,
 )
-from cosa_tpu_torch.ops.image import normalize
+from cosa_tpu_torch.ops.gmm import gmm_thresholds
+from cosa_tpu_torch.ops.image import denormalize01, normalize
+from cosa_tpu_torch.ops.par import par_refine
 from cosa_tpu_torch.ops.resize import resize_bilinear
-from cosa_tpu_torch.train.state import TrainState, ema_update
+from cosa_tpu_torch.train.state import GMMState, TrainState, ema_update, use_gmm_aux
+
+
+def _update_queue(queue: torch.Tensor, ptr: int, rows: torch.Tensor) -> int:
+    """Ring-buffer write (reference DynamicQueue.update, seg_helper.py:953-956)
+    at ``ptr``, in place, clamped so the rows fit as the JAX package's
+    dynamic_update_slice does. Returns the next pointer."""
+    b, q = rows.shape[0], queue.shape[0]
+    start = min(max(ptr, 0), q - b)
+    queue[start:start + b] = rows
+    return (ptr + b) % q
+
+
+def _gmm_maxrow(valid_cam: torch.Tensor, gmmscale: int) -> torch.Tensor:
+    """(B, H, W, C) validated CAM -> (B, (H/s)*(W/s)) rows of its spatial
+    max map (main.py:139-143)."""
+    h, w = valid_cam.shape[1:3]
+    red = resize_bilinear(valid_cam, (h // gmmscale, w // gmmscale))
+    return red.amax(dim=-1).reshape(valid_cam.shape[0], -1)
+
+
+def _gmm_update(cfg, gmm: GMMState, valid_cam, valid_cam_aux) -> None:
+    """The JAX package's GMM update (train/step.py:151-180), in place: each
+    head with GMM on writes its rows from the OLD pointer, refits its
+    thresholds on its queue and moves their EMAs."""
+    d = cfg.gmmemadecay
+    ptr = gmm.ptr
+    for on, cam, q, lo_k, hi_k in (
+            (cfg.usegmm, valid_cam, "queue", "ema_low", "ema_high"),
+            (use_gmm_aux(cfg), valid_cam_aux, "queue_aux", "ema_low_aux", "ema_high_aux")):
+        if not on:
+            continue
+        queue = getattr(gmm, q)
+        gmm.ptr = _update_queue(queue, ptr, _gmm_maxrow(cam, cfg.gmmscale))
+        lo, hi = gmm_thresholds(queue, cfg.gmmfilter_thre, 3, cfg.gmm_em_iters,
+                                cfg.gmm_em_subsample)
+        setattr(gmm, lo_k, getattr(gmm, lo_k) * d + lo * (1 - d))
+        setattr(gmm, hi_k, getattr(gmm, hi_k) * d + hi * (1 - d))
 
 
 def build_train_step(cfg) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dict]:
-    if cfg.usegmm or cfg.usegmmaux:
-        raise NotImplementedError("usegmm: GMM thresholds are ROADMAP Queue 1 item 11")
-    if cfg.usepar:
-        raise NotImplementedError("usepar: PAR refinement is ROADMAP Queue 1 item 12")
     if cfg.model != "vit":
         raise NotImplementedError(f"model '{cfg.model}' (ROADMAP Queue 1 item 19)")
     camloss_fn = {
@@ -65,6 +102,12 @@ def build_train_step(cfg) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dic
         )
     mp = cfg.mixed_precision
     act_dtype = torch.bfloat16 if mp else torch.float32
+    gmm_main, gmm_aux = bool(cfg.usegmm), use_gmm_aux(cfg)
+    refine_fn = None
+    if cfg.usepar:
+        def refine_fn(imgs, probs):
+            return par_refine(imgs, probs, dilations=cfg.par_dilations,
+                              num_iter=cfg.par_iters)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
         wimg = normalize(batch["wimg"], dtype=act_dtype)
@@ -79,20 +122,29 @@ def build_train_step(cfg) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dic
                 cam_ps, cam_aux_ps, seg_ps = multi_scale_camseg(
                     state.teacher, wimg, cfg.pseudo_scales, cam_dtype=act_dtype
                 )
+            cam_src = (cam_ps + cam_aux_ps) / 2 if cfg.use_cammix else cam_ps
+            valid_cam = cam_validation(cam_src, cls_label)
+            valid_cam_aux = cam_validation(cam_aux_ps, cls_label)
+            if gmm_main or gmm_aux:
+                with record_function("gmm"):
+                    _gmm_update(cfg, state.gmm, valid_cam, valid_cam_aux)
+            g = state.gmm
+            # the logged pair is a 0-d tensor on the device either way
+            thre = (g.ema_low, g.ema_high) if gmm_main else tuple(
+                torch.full((), v, dtype=torch.float32, device=simg.device)
+                for v in (cfg.low_thre, cfg.high_thre))
+            thre_aux = ((g.ema_low_aux, g.ema_high_aux) if gmm_aux
+                        else (cfg.low_thre_aux, cfg.high_thre_aux))
             with record_function("pseudo_labels"):
-                cam_src = (cam_ps + cam_aux_ps) / 2 if cfg.use_cammix else cam_ps
                 mask_kwargs = dict(img_box=img_box, cls_labels=cls_label,
                                    downscale=cfg.par_downscale,
-                                   ignore_index=cfg.ignore_index)
-                refine_mask = cam2mask(
-                    cams=cam_validation(cam_src, cls_label),
-                    threshold_high=state.thre_high, threshold_low=state.thre_low,
-                    **mask_kwargs)
+                                   ignore_index=cfg.ignore_index, refine_fn=refine_fn,
+                                   images=denormalize01(simg) if cfg.usepar else None)
+                refine_mask = cam2mask(cams=valid_cam, threshold_high=thre[1],
+                                       threshold_low=thre[0], **mask_kwargs)
                 if cfg.aux_cam2seg:
-                    refine_mask_aux = cam2mask(
-                        cams=cam_validation(cam_aux_ps, cls_label),
-                        threshold_high=cfg.high_thre_aux,
-                        threshold_low=cfg.low_thre_aux, **mask_kwargs)
+                    refine_mask_aux = cam2mask(cams=valid_cam_aux, threshold_high=thre_aux[1],
+                                               threshold_low=thre_aux[0], **mask_kwargs)
                 valid_seg_ps = seg_refine_by_label(
                     seg_ps, cls_label, softmaxtemp=cfg.seg_softmaxtemp,
                     after_softmax=cfg.after_softmax,
@@ -155,8 +207,8 @@ def build_train_step(cfg) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dic
             cls_logits=out["cls"].detach(),
             cls_aux_logits=out["cls_aux"].detach(),
             lr=lr,
-            thre_low=state.thre_low,
-            thre_high=state.thre_high,
+            thre_low=thre[0],
+            thre_high=thre[1],
         )
 
     return train_step

@@ -11,7 +11,9 @@ against float64 with a bf16 store and < 1e-5 with an f32 store (its
 polynomial cosine within 1e-6 of the same polynomial in torch), K4 max
 abs error <= 1e-2 against its plain version with a cosine >= 0.9999
 against K1 (chip_smoke.py holds the same kernels at the main path's
-shapes)."""
+shapes). The opt-in path's torch ops on the card against the CPU: the
+permutohedral lattice's integer structure equal, its filter within 1e-5
+relative and bitwise repeatable; GMM thresholds and PAR within 1e-5."""
 
 import math
 
@@ -271,3 +273,65 @@ def test_crf_bilateral_product_needs_f32(gpu):
             crf.crf_labels_device(preset_config("synthetic"), z, z, z[..., 0])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _lattice_inputs(b=2, side=64, k=21):
+    """Energy-like features (xy / 50, rgb / 15) of random images, and
+    softmax values."""
+    rng = np.random.default_rng(8)
+    img = rng.integers(0, 256, (b, side, side, 3)).astype(np.float32)
+    ys, xs = np.mgrid[0:side, 0:side].astype(np.float32)
+    xy = np.broadcast_to(np.stack([xs, ys], -1)[None], (b, side, side, 2)) / 50.0
+    feats = np.concatenate([xy, img / 15.0], -1).reshape(b, -1, 5).astype(np.float32)
+    logits = rng.standard_normal((b, side * side, k)).astype(np.float32)
+    vals = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return torch.from_numpy(feats), torch.from_numpy(vals.astype(np.float32))
+
+
+def test_lattice_on_the_card_matches_the_cpu(gpu):
+    """The lattice built on the card equals the CPU's (every integer field
+    exactly, bary within 1e-5); the filter agrees within 1e-5 relative."""
+    from cosa_tpu_torch.ops.permutohedral import apply_lattice, build_lattice
+
+    f, v = _lattice_inputs()
+    cpu, card = build_lattice(f), build_lattice(f.to(gpu))
+    for name in ("uid", "nbr_idx", "nbr_ok", "order", "counts"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), name
+    assert float((card.bary.cpu() - cpu.bary).abs().max()) <= 1e-5
+    ref = apply_lattice(cpu, v)
+    out = apply_lattice(card, v.to(gpu)).cpu()
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_lattice_applies_twice_bitwise(gpu):
+    """The splat sums each lattice row in the sorted order: two builds and
+    two applies on the card agree bitwise."""
+    from cosa_tpu_torch.ops.permutohedral import apply_lattice, build_lattice
+
+    f, v = (t.to(gpu) for t in _lattice_inputs(b=4, side=96))
+    one, two = build_lattice(f), build_lattice(f)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    assert torch.equal(apply_lattice(one, v), apply_lattice(two, v))
+    assert torch.equal(apply_lattice(one, v, with_norm=True),
+                       apply_lattice(one, v, with_norm=True))
+
+
+def test_gmm_and_par_on_the_card_match_the_cpu(gpu):
+    """GMM thresholds within 1e-5 and PAR within 1e-5 (largest value) of
+    the CPU's result on the same inputs."""
+    from cosa_tpu_torch.ops.gmm import gmm_thresholds
+    from cosa_tpu_torch.ops.par import par_refine
+
+    rng = np.random.default_rng(9)
+    q = np.concatenate([rng.normal(0.15, 0.05, 2000), rng.normal(0.5, 0.08, 1500),
+                        rng.normal(0.85, 0.05, 1500)]).clip(0, 1).astype(np.float32)
+    q = torch.from_numpy(q.reshape(10, 500))
+    for a, b in zip(gmm_thresholds(q.to(gpu), 0.05, 3, 100, 8),
+                    gmm_thresholds(q, 0.05, 3, 100, 8)):
+        assert a.is_cuda and abs(float(a) - float(b)) <= 1e-5
+    imgs = torch.from_numpy(rng.random((2, 48, 40, 3)).astype(np.float32))
+    masks = torch.softmax(torch.from_numpy(rng.standard_normal((2, 24, 20, 5)).astype(
+        np.float32)), -1)
+    ref = par_refine(imgs, masks, num_iter=4)
+    out = par_refine(imgs.to(gpu), masks.to(gpu), num_iter=4).cpu()
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

@@ -10,9 +10,9 @@ import torch
 
 from cosa_tpu.config import preset_config as jax_preset
 from cosa_tpu.data.loader import build_train_loader as jax_build_loader
-from cosa_tpu_torch.cli import evaluate as cli_evaluate
 from cosa_tpu_torch.config import preset_config as torch_preset
 from cosa_tpu_torch.data.loader import build_train_loader
+from cosa_tpu_torch.eval.crf import crf_refine_host
 from cosa_tpu_torch.train.loop import finaleval, train
 
 
@@ -65,14 +65,10 @@ def test_unported_options_raise_up_front(tmp_path):
     for kw in (dict(teacher_int8=True), dict(profile_dir="p"), dict(tp=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _tiny(**kw)
-    with pytest.raises(NotImplementedError, match="lattice"):
-        train(_tiny(work_dir=str(tmp_path), energy_filter="lattice",
-                    energy_convention=1.0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train(_tiny(work_dir=str(tmp_path), pretrained_path="x.pth"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        train(_tiny(work_dir=str(tmp_path), pretrained_path="x.npz"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         finaleval(_tiny(work_dir=str(tmp_path), eval_split="test"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli_evaluate.main(["x", "--dataset", "synthetic", "--backbone", "vit_tiny_test",
-                           "--crf_backend", "native", "--pretrained_path", "",
-                           "--work_dir", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(ValueError, match="native"):
+        crf_refine_host(_tiny(crf_backend="device"), torch.zeros((4, 4, 3), dtype=torch.uint8),
+                        torch.full((4, 4, 2), 0.5))
