@@ -13,9 +13,11 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      paths give it (K1 also at the evaluation's token counts, K4 at the
      softmax microbenchmark's), and time kernel, plain version and one
      PyTorch library call as device time, by replaying a CUDA graph (K1 at
-     both block sizes and every (B*H, N) the paths launch it with, summed
-     per training step and per eval batch; K4 beside K1 at the same shape
-     and block size; K3 beside a fill of its output);
+     both block sizes and every (B*H, N) the paths launch it with, the
+     distilled DeiT's and the pseudo pipeline's included, summed per
+     training step, eval batch and pseudo-labelled image; K2 at the
+     default's and the distilled student's N; K4 beside K1 at the same
+     shape and block size; K3 beside a fill of its output);
   4. train 6 steps of the default VOC configuration (ViT-B/16, crop 448,
      batch 4, bf16, RFF energy) on synthetic data through
      cosa_tpu_torch.train.loop.train, from a seeded random init (no weights
@@ -42,7 +44,21 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
   9. the host CRF backends on phase 8's best-seg weights: evaluate with
      crf_backend "native" (the C++ lattice on the host) and "jax" at
      crf_reduce 1 (the lattice on the card), their labels held together;
- 10. print the kernels' JSON line, then the device JSON line last.
+ 10. the pseudo-label pipeline, the submission and the visuals on phase
+     8's tree and best-seg weights: the make_pseudo CLI over the 16 val
+     images with PAR off and on, the native CRF on 4 of them, finaleval
+     with eval_split "test" on a test split written from the val images
+     (device CRF), evaluate with save_dir on 4 images; file counts,
+     palette PNGs of each image's size, labels in range, finite mIoUs,
+     exact launch counts, s/image;
+ 11. the other architectures at full width on phase 8's tree: 4 steps
+     and a validation for the Maskformer decoder on ViT-B/16 (pretrained
+     from an AugReg .npz) and for the distilled DeiT-B/16 (from a
+     reference-key .pth with its dist_token), both files written from a
+     model seeded apart; the weights in both encoders before step 1,
+     finite losses, exact launch counts, sec/iter;
+then print the kernels' JSON line, the card's name and power limit, and
+the device JSON line last.
 
 Phase 3 also times the opt-in path's torch ops (lattice build and apply,
 the GMM thresholds, one PAR refine) at that path's shapes, each beside its
@@ -258,13 +274,26 @@ def _k1_block(flash, rows: int):
     finally:
         flash.BLOCK_128_ABOVE = saved
 
-# (B*H, N, caller) of every K1 launch on the paths, 12 blocks each
+# (B*H, N, caller) of every K1 launch on the paths, 12 blocks each: the
+# default ViT's training step and eval batch, the distilled DeiT's (two
+# prefix tokens: N + 1), and the pseudo-label pipeline's one image and its
+# flip per forward
 K1_SHAPES = (
     (96, 785, "teacher"), (96, 197, "teacher"), (96, 1765, "teacher"),
     (48, 785, "student"),
     (192, 197, "eval"), (192, 442, "eval"), (192, 785, "eval"), (192, 1226, "eval"),
     (192, 1765, "eval"),
+    (96, 786, "teacher distilled"), (96, 198, "teacher distilled"),
+    (96, 1766, "teacher distilled"), (48, 786, "student distilled"),
+    (192, 198, "eval distilled"), (192, 443, "eval distilled"), (192, 786, "eval distilled"),
+    (192, 1227, "eval distilled"), (192, 1766, "eval distilled"),
+    (24, 785, "pseudo"), (24, 197, "pseudo"), (24, 1765, "pseudo"),
 )
+# what one K1 launch at a caller's shapes adds up to: a training step, an
+# eval batch, one pseudo-labelled image
+K1_SUMS = {"teacher": "step", "student": "step", "eval": "eval batch",
+           "teacher distilled": "distilled step", "student distilled": "distilled step",
+           "eval distilled": "distilled eval batch", "pseudo": "pseudo image"}
 
 
 def _qkv(b, n, h, gen):
@@ -334,15 +363,29 @@ def phase_kernels():
     # ---- K1 times at every (B*H, N) the paths launch it with, 12 blocks
     # each: the teacher's TTA scales 1.0 / 0.5 / 1.5 (batch 4 and its flips)
     # and the student's per training step, the evaluation's five scales
-    # (eval_batch 8 and its flips) per eval batch. Each shape is timed at
-    # both block sizes: the launcher's rule (kernels/flash.py::block_rows)
-    # is meant to take the faster, and the derived line names any shape
-    # where it did not
-    sums = {w: [0.0, 0.0] for w in ("step", "eval")}  # kernel, sdpa ms
+    # (eval_batch 8 and its flips) per eval batch, the same for the distilled
+    # DeiT, and the pseudo pipeline's three scales per image. Each shape is
+    # timed at both block sizes: the launcher's rule
+    # (kernels/flash.py::block_rows) is meant to take the faster, and the
+    # derived line names any shape where it did not. The shapes that no
+    # check above holds (the distilled and pseudo callers') are held here
+    sums = {w: [0.0, 0.0] for w in dict.fromkeys(K1_SUMS.values())}  # kernel, sdpa ms
     slower = []  # shapes where the rule's block size read slower
     for bh, n, where in K1_SHAPES:
         bk = bh // h
         qkv = _qkv(bk, n, h, gen)
+        if where.endswith(("distilled", "pseudo")):
+            q, k, v = _split(qkv, h)
+            ref = flash.plain_attention(q, k, v, scale).reshape(bk, n, h * 64)
+            o, _ = flash.attn_fwd(qkv, h, scale)
+            torch.cuda.synchronize()
+            err = float((o.float() - ref).abs().max())
+            log(f"  K1 N={n} B*H={bh} ({where}) {flash.block_rows(n)} queries per block: "
+                f"max|kernel - plain f32| = {err:.3e}")
+            if not err < 5e-3:
+                failures.append(f"K1 N={n} B*H={bh} ({where}): {err}")
+            k1[(n, bh, where)] = err
+            del q, k, v, ref
         qb, kb, vb = (t.to(torch.bfloat16) for t in _split(qkv, h))
         by_rows = {}
         for r in BLOCKS:
@@ -361,26 +404,28 @@ def phase_kernels():
         log(f"  K1 N={n} B*H={bh} ({where}): kernel {ms:.4f} ms at the rule's {rule} "
             f"queries per block (64: {by_rows[64]:.4f}, 128: {by_rows[128]:.4f}), plain "
             f"{plain:.4f} ms, sdpa {lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by})")
-        tot = sums["eval" if where == "eval" else "step"]
+        tot = sums[K1_SUMS[where]]
         tot[0] += 12 * ms
         tot[1] += 12 * lib
         if where == "student":
-            rows.append(dict(
+            fwd_row = dict(
                 name="flash_fwd", route="cuda",
                 source="cosa_tpu_torch/csrc/flash_attn.cu",
                 replaces="cosa_tpu/kernels/flash.py:201",
                 shape=f"B*H={bh} N={n} D=64 bf16",
-                max_abs_err=max(k1.values()), ms=ms, plain_ms=plain,
+                max_abs_err=None, ms=ms, plain_ms=plain,
                 bound_ms=bms, bound_by=by, library_ms=lib,
-            ))
-    log(f"  K1 derived: {sums['step'][0]:.3f} ms per training step (sdpa "
-        f"{sums['step'][1]:.3f}), {sums['eval'][0]:.3f} ms per eval batch (sdpa "
-        f"{sums['eval'][1]:.3f}); the rule's block size read slower than the other "
-        f"at {', '.join(slower) or 'no shape'}")
+            )
+    fwd_row["max_abs_err"] = max(k1.values())
+    rows.append(fwd_row)
+    log("  K1 derived: " + ", ".join(f"{k:.3f} ms per {w} (sdpa {lib:.3f})"
+                                     for w, (k, lib) in sums.items())
+        + f"; the rule's block size read slower than the other at "
+          f"{', '.join(slower) or 'no shape'}")
 
     # ---- K2 backward vs plain f32 autograd on the same bf16 inputs
     k2_err = 0.0
-    for n, nv in ((785, None), (197, 160)):
+    for n, nv in ((785, None), (197, 160), (786, None)):
         qkv = _qkv(b, n, h, gen)
         dout = torch.randn((b, n, h * 64), generator=gen, device="cuda").to(torch.bfloat16)
         o, lse = flash.attn_fwd(qkv, h, scale, nv)
@@ -398,36 +443,41 @@ def phase_kernels():
             if not rel < 1e-2:
                 failures.append(f"K2 N={n} {nm}: {rel}")
             k2_err = max(k2_err, float((a - r).abs().max()))
-    n = 785
-    qkv = _qkv(b, n, h, gen)
-    dout = torch.randn((b, n, h * 64), generator=gen, device="cuda").to(torch.bfloat16)
-    o, lse = flash.attn_fwd(qkv, h, scale)
-    ms = time_ms(lambda: flash.attn_bwd(qkv, o, dout, lse, h, scale))
-    xb = qkv.detach().clone().requires_grad_(True)
-    qb, kb, vb = (t.to(torch.bfloat16) for t in _split(xb, h))
-    ref_o = flash.plain_attention(qb, kb, vb, scale)
-    g4 = dout.reshape(b, n, h, 64)
-    # eager: autograd's backward runs on the forward's stream, outside a capture
-    plain = time_ms(lambda: torch.autograd.grad(ref_o, xb, g4, retain_graph=True),
-                    graph=False)
-    qh, kh, vh = (t.detach().transpose(1, 2).contiguous() for t in (qb, kb, vb))
-    fw = torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, False, False, scale=scale)
-    gh = dout.reshape(b, n, h, 64).transpose(1, 2).contiguous()
-    lib = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-        gh, qh, kh, vh, fw[0], fw[1], fw[2], fw[3], fw[4], fw[5], 0.0, False,
-        fw[6], fw[7], scale=scale))
-    flops = 10.0 * b * h * n * n * 64
-    nbytes = 8.0 * b * h * n * 64 * 2 + b * h * n * 4
-    bms, by = bound_ms(nbytes, flops, PEAK_BF16)
-    log(f"  K2 N={n} B*H={b * h}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"sdpa-flash bwd {lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by}); derived "
-        f"{12 * ms:.3f} ms per training step (library {12 * lib:.3f})")
-    rows.append(dict(
-        name="flash_bwd", route="cuda", source="cosa_tpu_torch/csrc/flash_attn.cu",
-        replaces="cosa_tpu/kernels/flash.py:228", shape=f"B*H={b * h} N={n} D=64 bf16",
-        max_abs_err=k2_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-        library_ms=lib,
-    ))
+    # ---- K2 times at the student's shape, the default ViT's and the
+    # distilled DeiT's (the row keeps the default's)
+    for n in (785, 786):
+        qkv = _qkv(b, n, h, gen)
+        dout = torch.randn((b, n, h * 64), generator=gen, device="cuda").to(torch.bfloat16)
+        o, lse = flash.attn_fwd(qkv, h, scale)
+        ms = time_ms(lambda: flash.attn_bwd(qkv, o, dout, lse, h, scale))
+        xb = qkv.detach().clone().requires_grad_(True)
+        qb, kb, vb = (t.to(torch.bfloat16) for t in _split(xb, h))
+        ref_o = flash.plain_attention(qb, kb, vb, scale)
+        g4 = dout.reshape(b, n, h, 64)
+        # eager: autograd's backward runs on the forward's stream, outside a capture
+        plain = time_ms(lambda: torch.autograd.grad(ref_o, xb, g4, retain_graph=True),
+                        graph=False)
+        qh, kh, vh = (t.detach().transpose(1, 2).contiguous() for t in (qb, kb, vb))
+        fw = torch.ops.aten._scaled_dot_product_flash_attention(
+            qh, kh, vh, 0.0, False, False, scale=scale)
+        gh = dout.reshape(b, n, h, 64).transpose(1, 2).contiguous()
+        lib = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            gh, qh, kh, vh, fw[0], fw[1], fw[2], fw[3], fw[4], fw[5], 0.0, False,
+            fw[6], fw[7], scale=scale))
+        flops = 10.0 * b * h * n * n * 64
+        nbytes = 8.0 * b * h * n * 64 * 2 + b * h * n * 4
+        bms, by = bound_ms(nbytes, flops, PEAK_BF16)
+        log(f"  K2 N={n} B*H={b * h}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"sdpa-flash bwd {lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by}); "
+            f"derived {12 * ms:.3f} ms per training step (library {12 * lib:.3f})")
+        if n == 785:
+            rows.append(dict(
+                name="flash_bwd", route="cuda", source="cosa_tpu_torch/csrc/flash_attn.cu",
+                replaces="cosa_tpu/kernels/flash.py:228", shape=f"B*H={b * h} N={n} D=64 bf16",
+                max_abs_err=k2_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=lib,
+            ))
+        del qkv, dout, o, lse, xb, ref_o, fw
 
     # ---- K3 RFF phi at the energy shape, vs float64 numpy
     rng = np.random.default_rng(2)
@@ -533,7 +583,8 @@ def phase_kernels():
     if failures:
         raise AssertionError("phase 3 kernel checks failed: " + "; ".join(failures))
     log("phase 3 ok: K1 max err < 5e-3 at N in (197, 442, 785, 1226, 1765), "
-        "masked and not; K2 dq/dk/dv rel err < 1e-2; K3 max err vs f64 < 3e-4 "
+        "masked and not, and at every distilled and pseudo (B*H, N); K2 dq/dk/dv rel "
+        "err < 1e-2 (N 785, 197, 786); K3 max err vs f64 < 3e-4 "
         "(bf16), < 1e-5 (f32); K4 max err <= 1e-2 and cos vs K1 >= 0.9999 "
         f"({json.dumps(k4)})")
     return rows
@@ -1097,6 +1148,264 @@ def phase_host_crf(smi: str, out: str, cfg, device_time):
     return counts
 
 
+def _timed(into: dict, tag: str):
+    """A wrapper of a function that records its result and its seconds,
+    from one synchronised card to the next, under ``tag``."""
+    import time
+
+    import torch
+
+    def wrap(fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into[tag] = (res, time.time() - t0)
+            return res
+        return run
+    return wrap
+
+
+def _check_labels(what: str, directory: str, sizes: dict, ignore: bool) -> None:
+    """One palette PNG per image of ``sizes`` ({name: (h, w)}) in
+    ``directory``, each of its image's size, labels < 21 (or 255 where
+    ``ignore``)."""
+    import numpy as np
+    from PIL import Image
+
+    got = sorted(os.listdir(directory))
+    if got != sorted(f"{n}.png" for n in sizes):
+        raise AssertionError(f"{what}: files {got[:4]}... ({len(got)}) for {len(sizes)} images")
+    for name, hw in sizes.items():
+        png = Image.open(os.path.join(directory, name + ".png"))
+        lab = np.asarray(png)
+        ok = (lab < 21) | (lab == 255) if ignore else lab < 21
+        if png.mode != "P" or lab.shape != tuple(hw) or not ok.all():
+            raise AssertionError(f"{what} {name}: mode {png.mode}, shape {lab.shape} vs {hw}, "
+                                 f"labels {np.unique(lab)[:8]}")
+
+
+def phase_pseudo_submission(smi: str, out: str, cfg):
+    """Phase 10, on phase 8's ShapesWSSS tree and best-seg weights: the
+    make_pseudo CLI over the 16 val images with PAR off and on, the CRF
+    (crf_backend "device": the native C++ lattice on the host) on the
+    first 4, finaleval with eval_split "test" on a test split written from
+    the val images (device CRF), and evaluate with save_dir on 4 val
+    images. Returns each run's launch counts."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import cosa_tpu_torch.eval.pseudo_pipeline as pp
+    import cosa_tpu_torch.train.loop as loop_mod
+    from cosa_tpu_torch.cli import make_pseudo
+    from cosa_tpu_torch.data.loader import build_val_dataset
+    from cosa_tpu_torch.eval.engine import eval_indices, evaluate, score_names
+    from cosa_tpu_torch.eval.submit import submission_dir
+    from cosa_tpu_torch.models.network import build_model
+    from cosa_tpu_torch.train import checkpoint as ckpt
+
+    root, weights = cfg.data_root, os.path.join(out, "best_seg", "params.pt")
+    val_ds = build_val_dataset(cfg)
+    names = list(val_ds.base.names)
+    sizes = {n: val_ds[i]["image"].shape[:2] for i, n in enumerate(names)}
+    per_image = 12 * len(cfg.pseudo_scales)
+    counts, timed = {}, {}
+
+    def run(tag, fn, **want):
+        _reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts[tag] = _counts()
+        if counts[tag] != _want(**want):
+            raise AssertionError(f"phase 10 {tag}: launch counts {counts[tag]} != {_want(**want)}")
+        return res
+
+    def check_pseudo(tag, directory, subset, note=""):
+        _check_labels(f"phase 10 {tag}", os.path.join(directory, "mask"), subset, ignore=True)
+        for n in subset:
+            cam = np.load(os.path.join(directory, "cam", n + ".npy"))
+            if cam.shape != (cfg.crop_size, cfg.crop_size, 20) or not np.isfinite(cam).all():
+                raise AssertionError(f"phase 10 {tag} {n}: CAM {cam.shape}")
+        res, secs = timed[tag]
+        _check_scores(f"phase 10 {tag}", {"miou": res["miou"]})
+        log(f"phase 10 {tag}{note}: {len(subset)} images, {secs / len(subset):.4f} s/image, mIoU "
+            f"{res['miou']:.4f}, launches {counts[tag]}, on {smi}")
+
+    flags = ["--dataset", "VOC12", "--data_root", root, "--split_dir", cfg.split_dir,
+             "--backbone", cfg.backbone, "--crop_size", str(cfg.crop_size),
+             "--pretrained_path", weights, "--work_dir", cfg.work_dir]
+    for tag, par in (("pseudo", "false"), ("pseudo_par", "true")):
+        shutil.rmtree(os.path.join(cfg.work_dir, tag), ignore_errors=True)
+        with _patched(pp, "generate_pseudo_labels", _timed(timed, tag)):
+            run(tag, lambda: make_pseudo.main([tag, *flags, "--usepar", par]),
+                flash_fwd=len(names) * per_image)
+        check_pseudo(tag, os.path.join(cfg.work_dir, tag, "pseudo"), sizes)
+
+    model = ckpt.load_best(out, "seg", build_model(cfg, "cuda"))
+    crf_dir = os.path.join(cfg.work_dir, "pseudo_crf")
+    shutil.rmtree(crf_dir, ignore_errors=True)
+    n_crf = 4
+    crf = _timed(timed, "pseudo_crf")(pp.generate_pseudo_labels)
+    run("pseudo_crf", lambda: crf(cfg.replace(usepar=False), model, val_ds, crf_dir,
+                                  max_images=n_crf, use_crf=True, device="cuda"),
+        flash_fwd=n_crf * per_image)
+    check_pseudo("pseudo_crf", crf_dir, {n: sizes[n] for n in names[:n_crf]},
+                 " (the native C++ CRF on the host)")
+
+    # the test split: the val images under JPEGImages_test, as VOC lays it out
+    os.makedirs(os.path.join(root, "JPEGImages_test"), exist_ok=True)
+    for n in names:
+        shutil.copy(os.path.join(root, "JPEGImages", n + ".jpg"),
+                    os.path.join(root, "JPEGImages_test", n + ".jpg"))
+    with open(os.path.join(cfg.split_dir, "voc", "test.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    cfg_s = cfg.replace(name="submit", eval_split="test", pretrained_path=weights)
+    shutil.rmtree(loop_mod.output_dir(cfg_s), ignore_errors=True)
+    buckets = {}
+    for hw in sizes.values():
+        pad = 500 if max(hw) <= 500 else -(-max(hw) // 128) * 128
+        buckets[pad] = buckets.get(pad, 0) + 1
+    batches = sum(-(-k // cfg.eval_batch) for k in buckets.values())
+    with _patched(loop_mod, "dump_submission", _timed(timed, "submission")):
+        res = run("submission", lambda: loop_mod.finaleval(cfg_s, device="cuda"),
+                  flash_fwd=batches * 12 * len(cfg.eval_scales))
+    dst = submission_dir(loop_mod.output_dir(cfg_s))
+    if res != {"submission_dir": dst}:
+        raise AssertionError(f"phase 10 submission: {res}")
+    _check_labels("phase 10 submission", dst, sizes, ignore=False)
+    secs = timed["submission"][1]
+    log(f"phase 10 submission: {len(sizes)} test images in canvases {buckets}, device CRF "
+        f"(crf_reduce {cfg.crf_reduce}): {secs / len(sizes):.4f} s/image, launches "
+        f"{counts['submission']}, on {smi}")
+
+    vis_dir = os.path.join(cfg.work_dir, "visuals")
+    shutil.rmtree(vis_dir, ignore_errors=True)
+    n_vis = 4
+    res = run("visuals", lambda: evaluate(cfg, model, val_ds, max_images=n_vis,
+                                          save_dir=vis_dir, device="cuda"),
+              flash_fwd=-(-n_vis // cfg.eval_batch) * 12 * len(cfg.eval_scales))
+    _check_scores("phase 10 visuals", {k: res[k]["miou"] for k in score_names(res)})
+    picked = [val_ds[i] for i in eval_indices(len(val_ds), n_vis)]
+    _check_labels("phase 10 visuals", os.path.join(vis_dir, "seg"),
+                  {smp["name"]: smp["image"].shape[:2] for smp in picked}, ignore=False)
+    n_cls = int(sum(smp["cls_label"].sum() for smp in picked))
+    for sub in ("cam", "merged"):
+        got = len(os.listdir(os.path.join(vis_dir, sub)))
+        if got != n_cls:
+            raise AssertionError(f"phase 10 visuals: {got} files in {sub}/, {n_cls} expected")
+    log(f"phase 10 ok: pseudo masks, CAMs, submission and visuals: file counts, palette "
+        f"PNGs of each image's size, labels in range, mIoUs finite; visuals {n_vis} seg, "
+        f"{n_cls} cam and merged images; launches {counts['visuals']}")
+    return counts
+
+
+def _write_augreg(sd, path: str, vcfg) -> None:
+    """The encoder of a reference-key state dict as an original
+    vision_transformer / AugReg .npz, the layout
+    models/convert.py::state_dict_from_augreg_npz reads."""
+    import numpy as np
+
+    d, h = vcfg.embed_dim, vcfg.num_heads
+
+    def g(k):
+        return sd["encoder." + k].numpy()
+
+    z = {"embedding/kernel": g("patch_embed.proj.weight").transpose(2, 3, 1, 0),
+         "embedding/bias": g("patch_embed.proj.bias"), "cls": g("cls_token"),
+         "Transformer/posembed_input/pos_embedding": g("pos_embed"),
+         "Transformer/encoder_norm/scale": g("norm.weight"),
+         "Transformer/encoder_norm/bias": g("norm.bias")}
+    for i in range(vcfg.depth):
+        b, pre = f"Transformer/encoderblock_{i}/", f"blocks.{i}."
+        att = b + "MultiHeadDotProductAttention_1/"
+        kernels = np.split(g(pre + "attn.qkv.weight").T, 3, axis=1)
+        biases = np.split(g(pre + "attn.qkv.bias"), 3)
+        for n, k, bias in zip(("query", "key", "value"), kernels, biases):
+            z[att + f"{n}/kernel"] = k.reshape(d, h, d // h)
+            z[att + f"{n}/bias"] = bias.reshape(h, d // h)
+        z[att + "out/kernel"] = g(pre + "attn.proj.weight").T.reshape(h, d // h, d)
+        z[att + "out/bias"] = g(pre + "attn.proj.bias")
+        for k, name in (("0", "norm1"), ("2", "norm2")):
+            z[b + f"LayerNorm_{k}/scale"] = g(pre + name + ".weight")
+            z[b + f"LayerNorm_{k}/bias"] = g(pre + name + ".bias")
+        for k, name in (("0", "fc1"), ("1", "fc2")):
+            z[b + f"MlpBlock_3/Dense_{k}/kernel"] = g(pre + f"mlp.{name}.weight").T
+            z[b + f"MlpBlock_3/Dense_{k}/bias"] = g(pre + f"mlp.{name}.bias")
+    np.savez(path, **z)
+
+
+def phase_variants(smi: str, root: str):
+    """Phase 11, on phase 8's ShapesWSSS tree with the default (RFF)
+    energy: 4 training steps and a validation of student and teacher at
+    step 4 for (a) the Maskformer decoder on ViT-B/16, pretrained from an
+    AugReg .npz, and (b) the distilled DeiT-B/16 with LargeFOV, pretrained
+    from a reference-key .pth with its dist_token; each file is written
+    here from a model seeded apart from the run. Held: the file's weights
+    in both encoders before step 1, finite losses, exact launch counts.
+    Returns each run's launch counts."""
+    import shutil
+
+    import torch
+
+    import cosa_tpu_torch.train.loop as loop_mod
+    from cosa_tpu_torch.models.network import build_model
+    from cosa_tpu_torch.models.vit import BACKBONES
+
+    counts = {}
+    for tag, kw, ext in (("maskformer", dict(decoder="Maskformer"), "npz"),
+                         ("distilled", dict(backbone="deit_base_distilled_patch16_224"), "pth")):
+        pre = os.path.join(ROOT, "build", "chip_smoke", f"pretrained_{tag}.{ext}")
+        cfg = _optin_cfg(root, name=tag, energy_filter="rff", usegmm=False, usepar=False,
+                         eval_iters=4, pretrained_path=pre, **kw)
+        src = build_model(cfg, "cpu", seed=PRETRAINED_SEED).state_dict()
+        if ext == "npz":
+            _write_augreg(src, pre, BACKBONES[cfg.backbone])
+        else:
+            torch.save(src, pre)
+        shutil.rmtree(loop_mod.output_dir(cfg), ignore_errors=True)
+        loaded = []
+
+        def checking(load):  # before step 1: both encoders hold the file's weights
+            def fn(c, state):
+                load(c, state)
+                for model in (state.student, state.teacher):
+                    own = model.state_dict()
+                    loaded.append(all(torch.equal(own[k].cpu(), v) for k, v in src.items()
+                                      if k.startswith("encoder.")))
+                return state
+            return fn
+
+        per_val = 2 * -(-OPTIN_VAL // cfg.eval_batch) * 12 * len(cfg.eval_scales)
+        _reset_counts()
+        with _patched(loop_mod, "load_pretrained_into_state", checking):
+            res = loop_mod.train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        counts[tag] = _counts()
+        want = _want(flash_fwd=48 * 4 + per_val, flash_bwd=12 * 4, rff_phi=4 + 2)
+        if counts[tag] != want:
+            raise AssertionError(f"phase 11 {tag}: launch counts {counts[tag]} != {want}")
+        if loaded != [True, True] or (ext == "pth") != ("encoder.dist_token" in src):
+            raise AssertionError(f"phase 11 {tag}: pretrained encoder weights in student, "
+                                 f"teacher: {loaded}")
+        recs = res["records"]
+        if len(recs) != 4 or not all(math.isfinite(r[k]) for r in recs
+                                     for k in loop_mod.LOSS_KEYS):
+            raise AssertionError(f"phase 11 {tag}: losses {recs}")
+        if not math.isfinite(res["best_seg"]) or res["best_seg"] < 0:
+            raise AssertionError(f"phase 11 {tag}: no validation ({res['best_seg']})")
+        med = statistics.median(r["itertime"] for r in recs[1:])
+        log(f"phase 11 {tag} ({cfg.backbone}, {cfg.decoder}, pretrained {ext}): sec/iter "
+            f"median {med:.4f} s over steps 2-4, best seg {res['best_seg']:.2f}, last losses "
+            f"{json.dumps({k: recs[-1][k] for k in loop_mod.LOSS_KEYS})}, launches "
+            f"{counts[tag]}, on {smi}")
+    log("phase 11 ok: the file's weights in both encoders before step 1, losses finite, "
+        "a validation at step 4, exact launch counts")
+    return counts
+
+
 def phase_microbench():
     """K4's path: the softmax microbenchmark's entry point, as a user runs
     it. Returns the launch counts of that run."""
@@ -1146,12 +1455,15 @@ def main() -> int:
     mb_counts = phase_microbench()
     optin, out, cfg = phase_optin(smi)
     optin.update(phase_host_crf(smi, out, cfg, device_time))
+    pseudo = phase_pseudo_submission(smi, out, cfg)
+    variants = phase_variants(smi, cfg.data_root)
     for r in rows:
         # launches on the kernel's own path: training for K1-K3, the
-        # microbenchmark for K4; the scoring and opt-in paths' runs beside them
+        # microbenchmark for K4; the other paths' runs beside them
         r["launches"] = (mb_counts if r["name"].startswith("flash_fwd_") else counts)[r["name"]]
-        r["scoring_launches"] = {tag: c[r["name"]] for tag, c in scoring.items()}
-        r["optin_launches"] = {tag: c[r["name"]] for tag, c in optin.items()}
+        for key, runs in (("scoring", scoring), ("optin", optin), ("pseudo", pseudo),
+                          ("variant", variants)):
+            r[f"{key}_launches"] = {tag: c[r["name"]] for tag, c in runs.items()}
         r["ok"] = True
     log(json.dumps({"kernels": rows}))
     log(smi)

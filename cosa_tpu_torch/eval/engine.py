@@ -21,8 +21,12 @@ reference's evaluation_engine.py:11-297), for one GPU:
 
 The static-shape interpolation matrices and the single packed transfer of
 the JAX package are TPU devices that a GPU does not need. Multi-GPU
-evaluation (``mesh``) and ``save_dir`` visuals are ROADMAP Queue 1 items 14
-and 15.
+evaluation (``mesh``) is ROADMAP Queue 1 item 14.
+
+:func:`_eval_batch` is the one batch path of scoring, of the evaluation
+visuals (``save_dir``, raw CAM dumps) and of the test-split submission
+(``eval/submit.py``): asked for them, it also returns each image's canvas
+maps.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from cosa_tpu_torch.data.datasets import class_list
 from cosa_tpu_torch.eval.crf import crf_labels_device, crf_refine_host
 from cosa_tpu_torch.eval.metrics import scores_from_hist, torch_hist
 from cosa_tpu_torch.models.network import require_cosa_interface
@@ -49,6 +54,7 @@ from cosa_tpu_torch.ops.image import normalize
 from cosa_tpu_torch.ops.resize import resize_bilinear
 from cosa_tpu_torch.utils.device import resolve_device
 from cosa_tpu_torch.utils.metrics import compute_mAP
+from cosa_tpu_torch.utils.visualize import dump_eval_visuals
 
 SUBSET_SEED = 20240817  # the JAX package's seeded max_images subset (engine.py:276)
 
@@ -98,13 +104,14 @@ def evaluate(
     Returns {'CAM': scores, 'aux_CAM', 'Seg_ps', 'Seg_vd', 'cls_aps': (mAP,
     mAP_aux), ['cam_{t}', 'camaux_{t}' per threshold filter], ['Seg_crf'],
     'time': {'images', 'seconds', 'crf_seconds'}}, each scores entry as
-    :func:`~cosa_tpu_torch.eval.metrics.scores_from_hist` gives it."""
+    :func:`~cosa_tpu_torch.eval.metrics.scores_from_hist` gives it.
+
+    ``save_dir`` receives each image's seg PNG and CAM overlays
+    (``utils/visualize.py::dump_eval_visuals``), ``save_rawcam_dir`` its
+    CAMs of the present classes as a ``{class: map}`` ``.npy``."""
     require_cosa_interface(cfg)
     if mesh is not None:
         raise NotImplementedError("mesh: multi-GPU evaluation is ROADMAP Queue 1 item 14")
-    if save_dir:
-        raise NotImplementedError(
-            "save_dir: evaluation visuals need utils/visualize.py, ROADMAP Queue 1 item 15")
     dev = resolve_device(device)
     thresholds = tuple(threshold_filters or ())
     n = cfg.num_classes
@@ -124,8 +131,11 @@ def evaluate(
         with torch.no_grad():
             for c0 in range(0, len(idxs), bsz):
                 samples = [val_ds[i] for i in idxs[c0:c0 + bsz]]
-                h_b, probs, probs_aux, dt = _eval_batch(
-                    cfg, model, samples, pad, thresholds, getcrf, save_rawcam_dir, dev)
+                h_b, probs, probs_aux, dt, maps = _eval_batch(
+                    cfg, model, samples, pad, thresholds, getcrf, dev,
+                    return_maps=bool(save_dir or save_rawcam_dir))
+                if maps is not None:
+                    _dump_maps(cfg, samples, maps, save_dir, save_rawcam_dir)
                 hists += h_b
                 crf_s += dt
                 for bi, smp in enumerate(samples):
@@ -153,10 +163,34 @@ def evaluate(
     return out
 
 
-def _eval_batch(cfg, model, samples, pad, thresholds, getcrf, rawcam_dir, dev):
+def _dump_maps(cfg, samples, maps, save_dir, rawcam_dir) -> None:
+    """Each image's visuals and raw CAMs from :func:`_eval_batch`'s maps."""
+    n = cfg.num_classes
+    seg_vd, r_cam = maps["seg_vd"].cpu().numpy(), maps["r_cam"].cpu().numpy()
+    names = class_list(cfg.dataset, cfg.split_dir) if save_dir else None
+    for i, smp in enumerate(samples):
+        h, w = smp["image"].shape[:2]
+        cam_map = r_cam[i, :h, :w]
+        if rawcam_dir:
+            # reference save_cam_npv2 (evaluation_engine.py:299-309): per
+            # image, {class index: CAM map} over its present classes
+            os.makedirs(rawcam_dir, exist_ok=True)
+            cam_dict = {int(c): cam_map[..., c] for c in range(n - 1)
+                        if smp["cls_label"][c] > 0}
+            if cam_dict:
+                np.save(os.path.join(rawcam_dir, smp["name"] + ".npy"), cam_dict)
+        if save_dir:
+            dump_eval_visuals(save_dir, smp["name"], smp["image"], seg_vd[i, :h, :w],
+                              cam_map, smp["label"], smp["cls_label"], names, n)
+
+
+def _eval_batch(cfg, model, samples, pad, thresholds, getcrf, dev, return_maps=False):
     """One batch: its stacked confusion matrices on the device, the
-    image-level probabilities of both heads on the host, and the seconds
-    the CRF took."""
+    image-level probabilities of both heads on the host, the seconds the
+    CRF took, and (with ``return_maps``, else None) the canvas maps on the
+    device: ``seg_vd`` (B, P, P) validated seg labels, ``r_cam`` (B, P, P,
+    C-1) CAMs and, with ``getcrf``, ``crf`` (B, P, P) the refined labels
+    (the host backends' single image at its top left, 0 elsewhere)."""
     n = cfg.num_classes
     sizes = [smp["image"].shape[:2] for smp in samples]
     biggest = max(max(hw) for hw in sizes)
@@ -175,11 +209,12 @@ def _eval_batch(cfg, model, samples, pad, thresholds, getcrf, rawcam_dir, dev):
     for i, (h, w) in enumerate(sizes):
         gt[i, :h, :w] = torch.from_numpy(samples[i]["label"].astype(np.int64)).to(dev)
 
+    seg_vd = torch.argmax(seg_validation(r_seg, cls), dim=-1)
     hs = [
         torch_hist(gt, cam_to_label(r_cam, cls, bkg_thre=cfg.bkg_thre), n),
         torch_hist(gt, cam_to_label(r_cam_aux, cls, bkg_thre=cfg.bkg_thre), n),
         torch_hist(gt, torch.argmax(r_seg, dim=-1), n),
-        torch_hist(gt, torch.argmax(seg_validation(r_seg, cls), dim=-1), n),
+        torch_hist(gt, seg_vd, n),
     ]
     if thresholds:
         # the JAX package's box: rows and columns up to h - 1, w - 1
@@ -196,6 +231,7 @@ def _eval_batch(cfg, model, samples, pad, thresholds, getcrf, rawcam_dir, dev):
                 hs.append(torch_hist(torch.where(ign, 255, gt),
                                      torch.where(ign, 0, lab), n))
     crf_s = 0.0
+    maps = dict(seg_vd=seg_vd, r_cam=r_cam) if return_maps else None
     if getcrf:
         _sync(dev)
         t = time.time()
@@ -206,22 +242,17 @@ def _eval_batch(cfg, model, samples, pad, thresholds, getcrf, rawcam_dir, dev):
                 img_c[i, :h, :w] = torch.from_numpy(samples[i]["image"]).to(dev)
             valid = box_mask(torch.tensor([[0, h, 0, w] for h, w in sizes], device=dev),
                              pad, pad).to(torch.float32)
-            hs.append(torch_hist(gt, crf_labels_device(cfg, img_c, vd_probs, valid), n))
+            crf = crf_labels_device(cfg, img_c, vd_probs, valid)
+            hs.append(torch_hist(gt, crf, n))
         else:  # one image (batch 1), its probabilities at its own size
             (h, w), img = sizes[0], torch.from_numpy(samples[0]["image"]).to(dev)
             lab = crf_refine_host(cfg, img, vd_probs[0, :h, :w])
             hs.append(torch_hist(gt[0, :h, :w], lab, n))
+            crf = torch.zeros_like(seg_vd, dtype=lab.dtype)
+            crf[0, :h, :w] = lab
         _sync(dev)
         crf_s = time.time() - t
-    if rawcam_dir:
-        # reference save_cam_npv2 (evaluation_engine.py:299-309): per image,
-        # {class index: CAM map} over its present classes
-        os.makedirs(rawcam_dir, exist_ok=True)
-        for i, (h, w) in enumerate(sizes):
-            cam_map = r_cam[i, :h, :w].cpu().numpy()
-            cam_dict = {int(c): cam_map[..., c] for c in range(n - 1)
-                        if samples[i]["cls_label"][c] > 0}
-            if cam_dict:
-                np.save(os.path.join(rawcam_dir, samples[i]["name"] + ".npy"), cam_dict)
+        if maps is not None:
+            maps["crf"] = crf
     probs = torch.sigmoid(torch.stack([cls_f, cls_a])).cpu().numpy()
-    return torch.stack(hs), probs[0], probs[1], crf_s
+    return torch.stack(hs), probs[0], probs[1], crf_s, maps

@@ -1,18 +1,23 @@
-"""JAX parameter tree -> the port's ``state_dict``.
+"""JAX parameter tree -> the port's ``state_dict``, and the AugReg reader.
 
-The inverse of the JAX package's ``network_params_from_torch``
-(cosa_tpu/models/convert.py:105-119), on a tree of numpy arrays:
+:func:`state_dict_from_jax` is the inverse of the JAX package's
+``network_params_from_torch`` (cosa_tpu/models/convert.py:105-119), on a
+tree of numpy arrays:
 
   encoder/patch_embed/kernel (P,P,3,D)  -> encoder.patch_embed.proj.weight (D,3,P,P)
   .../{qkv,proj,fc1,fc2}/kernel (in,out) -> ....weight (out,in)
   .../norm*/scale                        -> .../norm*.weight
+  encoder/{cls,dist}_token               -> encoder.{cls,dist}_token
   decoder/convK/kernel (3,3,I,O) HWIO    -> decoder.convK.weight (O,I,3,3) OIHW
+  decoder/blocks_i/{qkv,proj,fc1,fc2}    -> decoder.blocks.i.{attn.qkv,attn.proj,mlp.fc1,mlp.fc2}
+  decoder/{proj_patch,proj_classes,cls_emb} -> the same names, as stored
   classifier (D, C-1)                    -> classifier.weight (C-1, D, 1, 1)
 
-The keys are the reference's, so a CoSA ``.pth`` also loads with plain
-``load_state_dict``. :func:`load_pretrained_into_state` loads a
-reference-key or a timm-key ``.pth`` into the student and the teacher of a
-training state.
+The keys are the reference's, so a CoSA ``.pth`` (LargeFOV or Maskformer)
+also loads with plain ``load_state_dict``. :func:`load_pretrained_into_state`
+loads a reference-key or a timm-key ``.pth``, or an original AugReg
+``.npz`` (:func:`state_dict_from_augreg_npz`), into the student and the
+teacher of a training state.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from cosa_tpu_torch.models.vit import BACKBONES
 
 
 def _t(x) -> torch.Tensor:
@@ -47,6 +54,8 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         "encoder.cls_token": _t(enc["cls_token"]),
         "encoder.pos_embed": _t(enc["pos_embed"]),
     }
+    if "dist_token" in enc:
+        sd["encoder.dist_token"] = _t(enc["dist_token"])
     i = 0
     while f"blocks_{i}" in enc:
         blk, pre = enc[f"blocks_{i}"], f"encoder.blocks.{i}."
@@ -58,11 +67,72 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         _dense(pre + "mlp.fc2", blk["mlp"]["fc2"], sd)
         i += 1
     _norm("encoder.norm", enc["norm"], sd)
-    for k in (6, 7, 8):
-        sd[f"decoder.conv{k}.weight"] = _t(
-            np.asarray(params["decoder"][f"conv{k}"]["kernel"]).transpose(3, 2, 0, 1))
+    dec = params["decoder"]
+    if "cls_emb" in dec:  # MaskTransformer
+        _dense("decoder.proj_dec", dec["proj_dec"], sd)
+        for name in ("cls_emb", "proj_patch", "proj_classes"):
+            sd["decoder." + name] = _t(dec[name])
+        _norm("decoder.decoder_norm", dec["decoder_norm"], sd)
+        _norm("decoder.mask_norm", dec["mask_norm"], sd)
+        i = 0
+        while f"blocks_{i}" in dec:
+            blk, pre = dec[f"blocks_{i}"], f"decoder.blocks.{i}."
+            _norm(pre + "norm1", blk["norm1"], sd)
+            _norm(pre + "norm2", blk["norm2"], sd)
+            _dense(pre + "attn.qkv", blk["qkv"], sd)
+            _dense(pre + "attn.proj", blk["proj"], sd)
+            _dense(pre + "mlp.fc1", blk["fc1"], sd)
+            _dense(pre + "mlp.fc2", blk["fc2"], sd)
+            i += 1
+    else:  # LargeFOV
+        for k in (6, 7, 8):
+            sd[f"decoder.conv{k}.weight"] = _t(
+                np.asarray(dec[f"conv{k}"]["kernel"]).transpose(3, 2, 0, 1))
     for name in ("classifier", "aux_classifier"):
         sd[name + ".weight"] = _t(np.asarray(params[name]).T[:, :, None, None])
+    return sd
+
+
+def state_dict_from_augreg_npz(path: str, depth: int = 12) -> Dict[str, torch.Tensor]:
+    """A timm-key ViT encoder state dict from an original google-research
+    vision_transformer / AugReg ``.npz`` (the upstream of the timm
+    ``jx_vit_*`` weights the reference downloads; the JAX package's
+    ``encoder_params_from_augreg_npz``, models/convert.py:142-188):
+
+      embedding/kernel (P,P,3,D) HWIO          -> patch_embed.proj.weight (D,3,P,P)
+      .../{query,key,value}/kernel (D,H,hd)    -> blocks.i.attn.qkv.weight (3D, D)
+      .../out/kernel (H,hd,D)                  -> blocks.i.attn.proj.weight (D, D)
+      LayerNorm_0 / LayerNorm_2                -> norm1 / norm2
+      MlpBlock_3/Dense_0 / Dense_1             -> mlp.fc1 / mlp.fc2"""
+    with np.load(path) as z:
+        def g(k):
+            return np.asarray(z[k], np.float32)
+
+        d = g("embedding/bias").shape[0]
+        sd = {
+            "patch_embed.proj.weight": _t(g("embedding/kernel").transpose(3, 2, 0, 1)),
+            "patch_embed.proj.bias": _t(g("embedding/bias")),
+            "cls_token": _t(g("cls")),
+            "pos_embed": _t(g("Transformer/posembed_input/pos_embedding")),
+            "norm.weight": _t(g("Transformer/encoder_norm/scale")),
+            "norm.bias": _t(g("Transformer/encoder_norm/bias")),
+        }
+        for i in range(depth):
+            b, pre = f"Transformer/encoderblock_{i}/", f"blocks.{i}."
+            att = b + "MultiHeadDotProductAttention_1/"
+            qkv = ("query", "key", "value")
+            sd[pre + "attn.qkv.weight"] = _t(np.concatenate(
+                [g(att + f"{n}/kernel").reshape(d, -1) for n in qkv], axis=1).T)
+            sd[pre + "attn.qkv.bias"] = _t(np.concatenate(
+                [g(att + f"{n}/bias").reshape(-1) for n in qkv]))
+            sd[pre + "attn.proj.weight"] = _t(g(att + "out/kernel").reshape(-1, d).T)
+            sd[pre + "attn.proj.bias"] = _t(g(att + "out/bias"))
+            for k, name in (("0", "norm1"), ("2", "norm2")):
+                sd[pre + name + ".weight"] = _t(g(b + f"LayerNorm_{k}/scale"))
+                sd[pre + name + ".bias"] = _t(g(b + f"LayerNorm_{k}/bias"))
+            for k, name in (("0", "fc1"), ("1", "fc2")):
+                sd[pre + f"mlp.{name}.weight"] = _t(g(b + f"MlpBlock_3/Dense_{k}/kernel").T)
+                sd[pre + f"mlp.{name}.bias"] = _t(g(b + f"MlpBlock_3/Dense_{k}/bias"))
     return sd
 
 
@@ -77,8 +147,9 @@ def load_pretrained_into_state(cfg, state):
     """Load ``cfg.pretrained_path`` into student AND teacher (the reference
     builds both networks on the same pretrained backbone, main.py:45-46), as
     the JAX package's loader for ``model="vit"`` (models/convert.py:318-354):
-    a reference-key ``.pth`` (``encoder.*`` plus heads) or a timm-key encoder
-    ``.pth``. Keys the network does not have are dropped (``strict=False``,
+    a reference-key ``.pth`` (``encoder.*`` plus heads), a timm-key encoder
+    ``.pth`` or an AugReg ``.npz``. Keys the network does not have are
+    dropped (``strict=False``,
     the JAX package's ``_filter_to``); every encoder tensor of the network
     must be in the file. Returns ``state``."""
     path = cfg.pretrained_path
@@ -87,9 +158,9 @@ def load_pretrained_into_state(cfg, state):
             f"pretrained weights for model '{cfg.model}': the model zoo and its "
             "loaders are ROADMAP Queue 1 items 16 and 19")
     if path.endswith(".npz"):
-        raise NotImplementedError(
-            "an AugReg .npz checkpoint: its loader is ROADMAP Queue 1 item 16")
-    sd = load_torch_checkpoint(path)
+        sd = state_dict_from_augreg_npz(path, BACKBONES[cfg.backbone].depth)
+    else:
+        sd = load_torch_checkpoint(path)
     if not any(k.startswith("encoder.") for k in sd):
         sd = {"encoder." + k: v for k, v in sd.items()}  # timm's encoder keys
     own = state.student.state_dict()

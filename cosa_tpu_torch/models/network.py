@@ -1,6 +1,6 @@
-"""The CoSA dual-task network: ViT encoder + LargeFOV decoder + CAM/cls
-heads (reference ``VITNetwork``, models/__init__.py:82-206; the JAX
-package's models/network.py).
+"""The CoSA dual-task network: ViT encoder + seg decoder (LargeFOV or
+MaskTransformer) + CAM/cls heads (reference ``VITNetwork``,
+models/__init__.py:82-206; the JAX package's models/network.py).
 
   * two bias-free 1x1 CAM classifiers over the last / aux feature maps,
     applied as (D, C-1) matmuls on NHWC maps;
@@ -19,7 +19,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
-from cosa_tpu_torch.models.decoders import LargeFOV
+from cosa_tpu_torch.models.decoders import LargeFOV, MaskTransformer
 from cosa_tpu_torch.models.vit import BACKBONES, VisionTransformer
 from cosa_tpu_torch.utils.device import resolve_device
 
@@ -30,17 +30,17 @@ class CoSANetwork(nn.Module):
                  isgap: bool = False, dtype: torch.dtype = torch.float32,
                  use_kernel: bool = False):
         super().__init__()
-        if decoder != "LargeFOV":
-            raise NotImplementedError(
-                f"decoder '{decoder}': the MaskTransformer decoder is ROADMAP "
-                "Queue 1 item 17"
-            )
         cfg = BACKBONES[backbone]
         self.isgap = isgap
         self.dtype = dtype
         d = cfg.embed_dim
         self.encoder = VisionTransformer(cfg, aux_layer, dtype, use_kernel)
-        self.decoder = LargeFOV(d, num_classes, dtype=dtype)
+        if decoder == "LargeFOV":
+            self.decoder = LargeFOV(d, num_classes, dtype=dtype)
+        elif decoder == "Maskformer":
+            self.decoder = MaskTransformer(num_classes, cfg.patch_size, d, d, dtype=dtype)
+        else:
+            raise ValueError(f"decoder {decoder!r}: LargeFOV or Maskformer")
         self.classifier = nn.Conv2d(d, num_classes - 1, 1, bias=False)
         self.aux_classifier = nn.Conv2d(d, num_classes - 1, 1, bias=False)
 
@@ -57,7 +57,10 @@ class CoSANetwork(nn.Module):
         d = tokens.shape[-1]
         fmap = tokens.reshape(b, gh, gw, d)
         fmap_aux = aux_tokens.reshape(b, gh, gw, d)
-        seg = self.decoder(fmap)
+        if isinstance(self.decoder, MaskTransformer):  # the normed patch tokens
+            seg = self.decoder(tokens, (hh, ww))
+        else:
+            seg = self.decoder(fmap)
 
         wc = self.classifier.weight[:, :, 0, 0].t().to(self.dtype)
         wa = self.aux_classifier.weight[:, :, 0, 0].t().to(self.dtype)
@@ -87,13 +90,20 @@ class CoSANetwork(nn.Module):
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in the JAX package's scheme: LeCun-normal
-    (truncated at 2 std) weights, zero biases, unit LayerNorms and
-    truncated N(0, 0.02) class token and position embedding."""
+    (truncated at 2 std) weights, zero biases, unit LayerNorms (every
+    module whose name holds "norm": norm1, decoder_norm, mask_norm, ...),
+    truncated N(0, 0.02) class, distillation and class-embedding tokens
+    and position embedding, and the MaskTransformer's two projection
+    matrices N(0, d_model^-0.5), untruncated (models/decoders.py:141-152)."""
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith(("cls_token", "pos_embed")):
+            module = name.rpartition(".")[0].rpartition(".")[2]
+            if name.endswith(("cls_token", "dist_token", "pos_embed", "cls_emb")):
                 std = 0.02
-            elif ".norm" in name:
+            elif name.endswith(("proj_patch", "proj_classes")):
+                p.normal_(0.0, p.shape[0] ** -0.5, generator=generator)
+                continue
+            elif "norm" in module:
                 p.fill_(1.0 if name.endswith("weight") else 0.0)
                 continue
             elif name.endswith("bias"):

@@ -40,7 +40,9 @@ class ViTConfig:
     qkv_bias: bool = True
     ln_eps: float = 1e-6
     base_img_size: int = 224  # grid the pretrained pos-embed was trained at
-    distilled: bool = False  # DeiT distillation token (not ported yet)
+    # DeiT distillation token (reference models/vit/deit.py:21-56): the
+    # prefix is [dist, cls] and pos_embed has num_patches + 2 rows
+    distilled: bool = False
 
 
 BACKBONES = {
@@ -150,10 +152,6 @@ class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, aux_layer: int = -3,
                  dtype: torch.dtype = torch.float32, use_kernel: bool = False):
         super().__init__()
-        if cfg.distilled:
-            raise NotImplementedError(
-                "distilled DeiT backbones are ROADMAP Queue 1 item 17"
-            )
         self.cfg = cfg
         self.aux_layer = aux_layer
         self.dtype = dtype
@@ -161,9 +159,12 @@ class VisionTransformer(nn.Module):
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(d, cfg.patch_size, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
+        self.npre = 2 if cfg.distilled else 1  # prefix tokens
+        if cfg.distilled:
+            self.dist_token = nn.Parameter(torch.zeros(1, 1, d))
         # frozen (reference vit.py:236-237): no gradient, no optimizer group,
         # but the EMA teacher still tracks it
-        self.pos_embed = nn.Parameter(torch.zeros(1, gs * gs + 1, d),
+        self.pos_embed = nn.Parameter(torch.zeros(1, gs * gs + self.npre, d),
                                       requires_grad=False)
         self.blocks = nn.ModuleList(
             [Block(cfg, dtype, use_kernel) for _ in range(cfg.depth)]
@@ -178,13 +179,16 @@ class VisionTransformer(nn.Module):
         gh, gw = hh // c.patch_size, ww // c.patch_size
         gs = c.base_img_size // c.patch_size
         d = c.embed_dim
+        npre = self.npre
 
         tok = self.patch_embed(x)
-        patch_pos = self.pos_embed[:, 1:].reshape(1, gs, gs, d)
+        patch_pos = self.pos_embed[:, npre:].reshape(1, gs, gs, d)
         patch_pos = resize_bicubic(patch_pos, (gh, gw)).reshape(1, gh * gw, d)
-        pos = torch.cat([self.pos_embed[:, :1], patch_pos], dim=1)
-        cls = self.cls_token.expand(b, 1, d).to(self.dtype)
-        tok = torch.cat([cls, tok], dim=1) + pos.to(self.dtype)
+        pos = torch.cat([self.pos_embed[:, :npre], patch_pos], dim=1)
+        # DeiT-distilled prepends [dist, cls], dist first (deit.py:44)
+        prefix = [self.dist_token, self.cls_token] if c.distilled else [self.cls_token]
+        prefix = torch.cat(prefix, dim=1).expand(b, npre, d).to(self.dtype)
+        tok = torch.cat([prefix, tok], dim=1) + pos.to(self.dtype)
 
         aux_idx = c.depth + self.aux_layer if self.aux_layer < 0 else self.aux_layer
         aux_tokens: Optional[torch.Tensor] = None
@@ -195,4 +199,5 @@ class VisionTransformer(nn.Module):
         tok = layer_norm(tok, self.norm).to(self.dtype)
         if aux_tokens is None:  # aux tap at the final (normed) layer
             aux_tokens = tok
-        return tok[:, 0], tok[:, 1:], aux_tokens[:, 1:]
+        # CLS is the last prefix token ([dist, cls, patches] for DeiT)
+        return tok[:, npre - 1], tok[:, npre:], aux_tokens[:, npre:]

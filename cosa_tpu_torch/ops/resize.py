@@ -76,3 +76,32 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     ih = torch.from_numpy(_nearest_index(h, size[0])).to(x.device)
     iw = torch.from_numpy(_nearest_index(w, size[1])).to(x.device)
     return x.index_select(h_axis, ih).index_select(h_axis + 1, iw)
+
+
+@functools.lru_cache(maxsize=512)
+def _linear_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) interpolation matrix of torch bilinear, align_corners=False
+    (the JAX package's ops/resize.py::_linear_matrix)."""
+    if in_size == out_size:
+        return np.eye(in_size, dtype=np.float32)
+    scale = in_size / out_size
+    dst = np.arange(out_size, dtype=np.float64)
+    src = np.maximum((dst + 0.5) * scale - 0.5, 0.0)
+    i0 = np.floor(src).astype(np.int64)
+    lam = src - i0
+    i0 = np.clip(i0, 0, in_size - 1)
+    i1 = np.clip(i0 + 1, 0, in_size - 1)
+    m = np.zeros((out_size, in_size), dtype=np.float64)
+    np.add.at(m, (dst.astype(np.int64), i0), 1.0 - lam)
+    np.add.at(m, (dst.astype(np.int64), i1), lam)
+    return m.astype(np.float32)
+
+
+def np_resize_bilinear(x: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """HWC / HW numpy bilinear resize (torch ``align_corners=False``), for
+    host-side maps at an image's own size."""
+    h, w = x.shape[:2]
+    mh, mw = _linear_matrix(h, size[0]), _linear_matrix(w, size[1])
+    y = np.tensordot(mh, x.astype(np.float32), axes=[[1], [0]])
+    y = np.tensordot(mw, y, axes=[[1], [1]])
+    return np.moveaxis(y, 0, 1)

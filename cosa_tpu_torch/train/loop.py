@@ -15,7 +15,8 @@
     place: a failure inside the optimizer or EMA update of a step leaves
     that step half applied in it);
   * :func:`finaleval`: the best-seg weights (or a reference-key ``.pth``)
-    scored on the full val split with the DenseCRF.
+    scored on the full val split with the DenseCRF, or, with
+    ``eval_split="test"``, the eval-server submission PNGs of the test split.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from cosa_tpu_torch.data.loader import (
     build_val_dataset,
 )
 from cosa_tpu_torch.eval.engine import evaluate, score_names
+from cosa_tpu_torch.eval.submit import dump_submission
 from cosa_tpu_torch.models.convert import load_pretrained_into_state, load_torch_checkpoint
 from cosa_tpu_torch.models.network import build_model, require_cosa_interface
 from cosa_tpu_torch.train import checkpoint as ckpt
@@ -247,10 +249,9 @@ def finaleval(cfg: Config, device=None) -> Dict:
     """Reference finaleval (main.py:401-433): the run's best-seg weights, or
     the reference-key checkpoint at ``cfg.pretrained_path``, scored on the
     full val split with the DenseCRF (``cfg.crf_backend``), on ``device``
-    (default: the GPU)."""
-    if cfg.eval_split == "test":
-        raise NotImplementedError(
-            "eval_split='test': the eval-server submission dump is ROADMAP Queue 1 item 15")
+    (default: the GPU). With ``eval_split="test"`` (no ground truth) it
+    writes the submission PNGs instead (``eval/submit.py``) and returns
+    ``{"submission_dir": ...}``."""
     dev = resolve_device(device)
     out_dir = output_dir(cfg)
     writer = MetricWriter(out_dir)
@@ -264,6 +265,11 @@ def finaleval(cfg: Config, device=None) -> Dict:
         writer.print(
             f"note: Seg_crf uses the on-device mean-field at 1/{cfg.crf_reduce} "
             "resolution (exact Gaussian transform)")
+    if cfg.eval_split == "test":
+        dst = dump_submission(cfg, model, build_test_dataset(cfg), out_dir, device=dev)
+        writer.print(f"wrote {len(os.listdir(dst))} submission PNGs to {dst}")
+        writer.close()
+        return {"submission_dir": dst}
     rawcam_dir = os.path.join(out_dir, "best1", "camraw_dir") if cfg.turnon_rawcam else None
     res = evaluate(cfg, model, build_test_dataset(cfg), getcrf=True,
                    save_rawcam_dir=rawcam_dir, device=dev)

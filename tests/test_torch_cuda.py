@@ -161,6 +161,31 @@ def test_train_steps_launch_every_kernel(gpu, tmp_path):
     assert all(np.isfinite(r["overall_loss"]) for r in res["records"])
 
 
+@pytest.mark.parametrize("n,nv", [(786, None), (786, 749), (1766, None)])
+def test_flash_kernels_at_the_distilled_token_counts(gpu, n, nv):
+    """K1 and K2 at the distilled DeiT's token counts (two prefix tokens:
+    784 + 2 and 1764 + 2 at crop 448 and its 1.5 scale), 12 heads."""
+    _flash_vs_plain(gpu, 2, 12, n, nv)
+
+
+def test_train_steps_distilled_maskformer(gpu, tmp_path):
+    """Two steps of a distilled DeiT with the MaskTransformer decoder: the
+    encoder launches K1 and K2 as the ViT does, the decoder none."""
+    from cosa_tpu_torch.config import preset_config
+    from cosa_tpu_torch.kernels import flash, rff
+    from cosa_tpu_torch.train.loop import train
+
+    cfg = preset_config("synthetic", backbone="deit_small_distilled_patch16_224",
+                        decoder="Maskformer", crop_size=64, max_iters=2, eval_iters=100,
+                        log_iters=1, finalval=False, work_dir=str(tmp_path))
+    before = {**flash.LAUNCHES, **rff.LAUNCHES}
+    res = train(cfg)
+    after = {**flash.LAUNCHES, **rff.LAUNCHES}
+    assert after["flash_fwd"] - before["flash_fwd"] == 2 * 12 * 4
+    assert after["flash_bwd"] - before["flash_bwd"] == 2 * 12
+    assert all(np.isfinite(r["overall_loss"]) for r in res["records"])
+
+
 @pytest.mark.parametrize("n,nv", [(442, None), (442, 405), (1226, None), (1226, 1189)])
 def test_flash_fwd_at_the_eval_token_counts(gpu, n, nv):
     """K1 at the evaluation's extra scales (0.75 and 1.25 of crop 448),

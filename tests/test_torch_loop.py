@@ -13,7 +13,8 @@ from cosa_tpu.data.loader import build_train_loader as jax_build_loader
 from cosa_tpu_torch.config import preset_config as torch_preset
 from cosa_tpu_torch.data.loader import build_train_loader
 from cosa_tpu_torch.eval.crf import crf_refine_host
-from cosa_tpu_torch.train.loop import finaleval, train
+from cosa_tpu_torch.eval.engine import evaluate
+from cosa_tpu_torch.train.loop import train
 
 
 def _tiny(**kw):
@@ -65,10 +66,10 @@ def test_unported_options_raise_up_front(tmp_path):
     for kw in (dict(teacher_int8=True), dict(profile_dir="p"), dict(tp=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _tiny(**kw)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train(_tiny(work_dir=str(tmp_path), pretrained_path="x.npz"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        finaleval(_tiny(work_dir=str(tmp_path), eval_split="test"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 19"):
+        train(_tiny(work_dir=str(tmp_path), model="swinend2end"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        evaluate(_tiny(), None, None, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="native"):
         crf_refine_host(_tiny(crf_backend="device"), torch.zeros((4, 4, 3), dtype=torch.uint8),
                         torch.full((4, 4, 2), 0.5))

@@ -3,9 +3,10 @@
 Configuration of test_full_step_oracle.py (tiny ViT, crop 64, batch 2,
 f32, two TTA scales, gate open, energy weight 1), run with the exact, the
 RFF and the lattice energy filter (the JAX package's lattice built before
-its step, the port's inside it), and once with GMM thresholds and PAR on, with one
+its step, the port's inside it), once with GMM thresholds and PAR on, with one
 seeded queue injected into both (the JAX package draws its queues from
-jax.random). Student and teacher start from different JAX inits
+jax.random), and once each with the MaskTransformer decoder and with the
+distilled DeiT backbone. Student and teacher start from different JAX inits
 carried into the port with state_dict_from_jax; the same batch goes to
 both steps. Every metric is held to that file's tolerances; after the step
 every student and teacher tensor (pos_embed included) agrees within 1e-5
@@ -41,16 +42,19 @@ TOLS = dict(cls_loss=2e-3, cls_aux_loss=2e-3, seg_loss=5e-3, cam_loss=2e-3,
 
 
 def _kw(kind, **extra):
-    return dict(backbone="vit_tiny_test", num_classes=6, crop_size=CROP, batch_size=2,
-                mixed_precision=False, flash_attention=False, aux_layer=-2,
-                pseudo_scales=(1.0, 0.5), warmup_iters=-1, energy_filter=kind,
-                energy_weight=1.0, energy_convention=0.6, aux_cam2seg=True,
-                aux_seg2cam=False, detach="none", **extra)
+    return {**dict(backbone="vit_tiny_test", num_classes=6, crop_size=CROP, batch_size=2,
+                   mixed_precision=False, flash_attention=False, aux_layer=-2,
+                   pseudo_scales=(1.0, 0.5), warmup_iters=-1, energy_filter=kind,
+                   energy_weight=1.0, energy_convention=0.6, aux_cam2seg=True,
+                   aux_seg2cam=False, detach="none"), **extra}
 
 
 # GMM on both heads (usegmmaux follows usegmm) and PAR: queues of 2 x 4 rows
 # of (64 / 16)^2 CAM maxima, two PAR dilations
 GMM_PAR = dict(usegmm=True, usepar=True, queue_update_ratio=4, par_dilations=(1, 2))
+# the other architectures: the MaskTransformer decoder, the distilled DeiT
+MASKFORMER = dict(decoder="Maskformer")
+DISTILLED = dict(backbone="deit_tiny_test_distilled")
 
 
 def _batch():
@@ -80,8 +84,10 @@ def _assert_params(module, jax_params, what):
 
 
 @pytest.mark.parametrize("kind,extra", [("exact", {}), ("rff", {}), ("lattice", {}),
-                                        ("rff", GMM_PAR)],
-                         ids=["exact", "rff", "lattice", "rff-gmm-par"])
+                                        ("rff", GMM_PAR), ("rff", MASKFORMER),
+                                        ("rff", DISTILLED)],
+                         ids=["exact", "rff", "lattice", "rff-gmm-par", "rff-maskformer",
+                              "rff-distilled"])
 def test_train_step_matches_jax(kind, extra):
     from cosa_tpu.objectives.energy import build_energy_lattice as jax_lattice
 
@@ -94,7 +100,8 @@ def test_train_step_matches_jax(kind, extra):
     tx = jax_build_optimizer(cfg_j, student)
     gmm_j = init_gmm_state(cfg_j, 2)
     queues = np.random.default_rng(7).random((2,) + gmm_j.queue.shape).astype(np.float32)
-    if extra:
+    gmm = extra.get("usegmm", False)
+    if gmm:
         gmm_j = gmm_j.replace(queue=jnp.asarray(queues[0]), queue_aux=jnp.asarray(queues[1]))
     state_j = JaxTrainState(step=jnp.zeros((), jnp.int32), student=student,
                             teacher=teacher, opt_state=tx.init(student), gmm=gmm_j)
@@ -107,7 +114,7 @@ def test_train_step_matches_jax(kind, extra):
     state_t = create_train_state(cfg_t, "cpu")
     state_t.student.load_state_dict(state_dict_from_jax(_np_tree(student)))
     state_t.teacher.load_state_dict(state_dict_from_jax(_np_tree(teacher)))
-    if extra:
+    if gmm:
         state_t.gmm.queue = torch.from_numpy(queues[0].copy())
         state_t.gmm.queue_aux = torch.from_numpy(queues[1].copy())
     batch_t = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -120,7 +127,7 @@ def test_train_step_matches_jax(kind, extra):
     assert state_t.step == int(new_j.step) == 1
     _assert_params(state_t.student, new_j.student, "student")
     _assert_params(state_t.teacher, new_j.teacher, "teacher")
-    if extra:  # the GMM state after the step: queues, pointer and the EMAs
+    if gmm:  # the GMM state after the step: queues, pointer and the EMAs
         g_t, g_j = state_t.gmm, new_j.gmm
         assert g_t.ptr == int(g_j.ptr) == 2
         for name in ("queue", "queue_aux", "ema_low", "ema_high", "ema_low_aux",
