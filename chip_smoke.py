@@ -57,6 +57,14 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      reference-key .pth with its dist_token), both files written from a
      model seeded apart; the weights in both encoders before step 1,
      finite losses, exact launch counts, sec/iter;
+ 12. the model zoo: Swin-B ``swinend2end`` at crop 448, batch 4, bf16 on
+     phase 8's tree from an mmseg-key .pth written from a model seeded
+     apart (4 steps, validations at steps 2 and 4, finaleval with the
+     device CRF, a run resumed from step 2; K3 once a step, no K1/K2;
+     sec/iter, s/image, peak memory); every seg-only family at its tiny
+     config on the card against the CPU (1e-4), and at its published
+     width, batch 2 at 512^2, one eval- and one train-mode forward
+     (finite on its grid, BatchNorm statistics moved, ms per forward);
 then print the kernels' JSON line, the card's name and power limit, and
 the device JSON line last.
 
@@ -1406,6 +1414,238 @@ def phase_variants(smi: str, root: str):
     return counts
 
 
+def _mmseg_swin_keys(sd):
+    """The backbone of a port SwinNetwork state dict under the mmseg/mmcv
+    Swin keys (the inverse of models/convert.py::state_dict_from_mmseg_swin),
+    with the stage norms norm0-norm2 that an mmseg file also holds."""
+    import re
+
+    import torch
+
+    out = {}
+    for k, v in sd.items():
+        if not k.startswith("backbone."):
+            continue
+        k = k[len("backbone."):]
+        for pat, rep in ((r"^patch_embed\.", "patch_embed.projection."),
+                         (r"^patch_norm\.", "patch_embed.norm."),
+                         (r"^stage(\d+)_block(\d+)\.", r"stages.\1.blocks.\2."),
+                         (r"^merge(\d+)\.", r"stages.\1.downsample."),
+                         (r"\.attn\.rel_pos_bias$", ".attn.w_msa.relative_position_bias_table"),
+                         (r"\.attn\.(qkv|proj)\.", r".attn.w_msa.\1."),
+                         (r"\.fc1\.", ".ffn.layers.0.0."), (r"\.fc2\.", ".ffn.layers.1.")):
+            k = re.sub(pat, rep, k)
+        out["backbone." + k] = v
+    width = out["backbone.norm3.weight"].shape[0]
+    for i in range(3):
+        c = width >> (3 - i)
+        out[f"backbone.norm{i}.weight"], out[f"backbone.norm{i}.bias"] = torch.ones(c), torch.zeros(c)
+    return out
+
+
+def _zoo_families():
+    """Phase 12's seg-only families: (name, the model at its published
+    width for 21 classes in ``dtype``, the model at its tiny test config
+    (tests/test_torch_zoo.py) in f32, its output grid at a 512 input, the
+    forward's keyword arguments: the mmseg models' auxiliary head too)."""
+    from cosa_tpu_torch.models import zoo as z
+
+    r1, aux = (1, 1, 1, 1), {"aux": True}
+    return [
+        ("segformer_mit_b5", lambda dt: z.SegFormer(21, "mit_b5", dtype=dt),
+         lambda: z.SegFormer(7, "mit_tiny_test"), 128, {}),
+        ("wrn38", lambda dt: z.WRN38Seg(21, dtype=dt), lambda: z.WRN38Seg(7, width_div=32), 64, {}),
+        ("deeplab_v1_r101", lambda dt: z.DeepLabV1(21, dtype=dt),
+         lambda: z.DeepLabV1(7, n_blocks=r1), 65, {}),
+        ("deeplab_v1_largefov_r101", lambda dt: z.DeepLabV1LargeFOV(21, dtype=dt),
+         lambda: z.DeepLabV1LargeFOV(7, n_blocks=r1), 65, {}),
+        ("deeplab_v2_r101", lambda dt: z.DeepLabV2(21, dtype=dt),
+         lambda: z.DeepLabV2(7, n_blocks=r1), 65, {}),
+        ("deeplab_v3_r101", lambda dt: z.DeepLabV3(21, dtype=dt),
+         lambda: z.DeepLabV3(7, n_blocks=r1), 33, {}),
+        ("deeplab_v3plus_r101", lambda dt: z.DeepLabV3Plus(21, dtype=dt),
+         lambda: z.DeepLabV3Plus(7, n_blocks=r1), 512, {}),
+        ("deeplab_v1_vgg16", lambda dt: z.DeepLabV1VGG16(21, dtype=dt),
+         lambda: z.DeepLabV1VGG16(7), 64, {}),
+        ("deeplab_v2_vgg16", lambda dt: z.DeepLabV2VGG16(21, dtype=dt),
+         lambda: z.DeepLabV2VGG16(7), 64, {}),
+        ("msc_deeplab_v2_r101", lambda dt: z.MSC(z.DeepLabV2(21, dtype=dt)),
+         lambda: z.MSC(z.DeepLabV2(7, n_blocks=r1), scales=(0.5,)), 65, {}),
+        ("beco_r101", lambda dt: z.BECODeepLabV3Plus(21, dtype=dt),
+         lambda: z.BECODeepLabV3Plus(7, depth=26), 128, {}),
+        ("mmseg_deeplab3", lambda dt: z.MMSegDeepLab3(21, dtype=dt),
+         lambda: z.MMSegDeepLab3(7, depth=26), 64, aux),
+        ("mmseg_deeplab3p", lambda dt: z.MMSegDeepLab3(21, separable=True, dtype=dt),
+         lambda: z.MMSegDeepLab3(7, depth=26, separable=True), 128, aux),
+        ("uper_swin_b", lambda dt: z.UPerSwin(21, "swin-b", dtype=dt),
+         lambda: z.UPerSwin(7, "swin_tiny_test"), 128, aux),
+    ]
+
+
+def _outputs(out):
+    """A family's outputs, the main logits first: MSC's train mode returns
+    [logits at each scale, fused], the mmseg models (main, aux)."""
+    return out[::-1] if isinstance(out, list) else list(out) if isinstance(out, tuple) else [out]
+
+
+def phase_zoo(smi: str, root: str):
+    """Phase 12, the model zoo on the card. (a) Swin-B ``swinend2end`` at
+    full width on phase 8's ShapesWSSS tree with the default RFF energy,
+    pretrained from an mmseg-key .pth written here from a model seeded
+    apart: 4 steps with a validation and a checkpoint at steps 2 and 4,
+    ``finaleval`` of the best-seg weights on the val split with the device
+    CRF, and a run resumed from step 2; held: the file's backbone in
+    student and teacher before step 1, finite losses and mIoUs, exact
+    launch counts (K3 once a step, after the calibration's 2; no K1/K2),
+    the resumed losses within 5e-3. (b) Every seg-only family: at its tiny
+    test config in f32, the card's eval output within 1e-4 of the same
+    module on the CPU; at its published width, batch 2 at 512^2 in bf16,
+    one eval-mode and one train-mode forward, finite on the family's grid,
+    with the BatchNorm running statistics moved. Returns each run's launch
+    counts."""
+    import copy
+    import shutil
+    import time
+
+    import numpy as np
+    import torch
+
+    import cosa_tpu_torch.train.loop as loop_mod
+    from cosa_tpu_torch.eval.engine import score_names
+    from cosa_tpu_torch.models.network import build_model, init_params
+    from cosa_tpu_torch.models.zoo.resnet import BatchNorm
+
+    pre = os.path.join(ROOT, "build", "chip_smoke", "pretrained_swin.pth")
+    cfg = _optin_cfg(root, name="swin", model="swinend2end", backbone="swin-b",
+                     energy_filter="rff", usegmm=False, usepar=False, pretrained_path=pre)
+    src = build_model(cfg, "cpu", seed=PRETRAINED_SEED).state_dict()
+    torch.save(_mmseg_swin_keys(src), pre)
+    out = loop_mod.output_dir(cfg)
+    cfg_r = cfg.replace(name="swin_resume", resume=os.path.join(out, "ckpt", "step_00000002.pt"))
+    for d in (out, loop_mod.output_dir(cfg_r)):
+        shutil.rmtree(d, ignore_errors=True)
+    loaded, counts = [], {}
+
+    def checking(load):  # before step 1: both backbones hold the file's weights
+        def fn(c, state):
+            load(c, state)
+            for model in (state.student, state.teacher):
+                own = model.state_dict()
+                loaded.append(all(torch.equal(own[k].cpu(), v) for k, v in src.items()
+                                  if k.startswith("backbone.")))
+            return state
+        return fn
+
+    def run(tag, fn, **want):
+        _reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts[tag] = _counts()
+        if counts[tag] != _want(**want):
+            raise AssertionError(f"phase 12 {tag}: launch counts {counts[tag]} != {_want(**want)}")
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    with _patched(loop_mod, "load_pretrained_into_state", checking):
+        res = run("swin", lambda: loop_mod.train(cfg, device="cuda"), rff_phi=4 + 2)
+    peak = torch.cuda.max_memory_allocated()
+    if loaded != [True, True]:
+        raise AssertionError(f"phase 12: pretrained backbone in student, teacher: {loaded}")
+    recs = res["records"]
+    if len(recs) != 4 or not all(math.isfinite(r[k]) for r in recs for k in loop_mod.LOSS_KEYS):
+        raise AssertionError(f"phase 12 swin: losses {recs}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        vals = [r for r in map(json.loads, f) if r["kind"] == "val"]
+    if [(r["iter"], r["model"]) for r in vals] != [(2, "ON"), (2, "AN"), (4, "ON"), (4, "AN")]:
+        raise AssertionError(f"phase 12: validations {vals}")
+    for r in vals:
+        _check_scores(f"phase 12 validation {r['model']} @ {r['iter']}",
+                      {k: v for k, v in r.items() if k not in ("kind", "model", "iter", "wall_s")})
+    med = statistics.median(r["itertime"] for r in recs[1:])
+    log(f"phase 12 swin ({cfg.backbone}, crop {cfg.crop_size}, batch {cfg.batch_size}, bf16, "
+        f"drop path 0.3): sec/iter median {med:.4f} s over steps 2-4 "
+        f"({cfg.batch_size / med:.2f} img/s), peak memory {peak / 2 ** 30:.2f} GiB, best seg "
+        f"{res['best_seg']:.2f}, last losses "
+        f"{json.dumps({k: recs[-1][k] for k in loop_mod.LOSS_KEYS})}, launches "
+        f"{counts['swin']}, on {smi}")
+
+    # finaleval scores the run's best-seg weights (a pretrained_path would
+    # name the checkpoint to score instead)
+    fin = run("swin_finaleval",
+              lambda: loop_mod.finaleval(cfg.replace(pretrained_path=""), device="cuda"))
+    t = fin["time"]
+    _check_scores("phase 12 final eval", {k: fin[k]["miou"] for k in score_names(fin)})
+    log(f"phase 12 swin final eval: {t['images']} images, scales {list(cfg.eval_scales)}: "
+        f"{t['seconds'] / t['images']:.4f} s/image, CRF {t['crf_seconds'] / t['images']:.4f} "
+        f"s/image (device, crf_reduce {cfg.crf_reduce}); mIoU "
+        f"{json.dumps({k: round(fin[k]['miou'], 6) for k in score_names(fin)})}, on {smi}")
+
+    resumed = run("swin_resume", lambda: loop_mod.train(cfg_r, device="cuda"), rff_phi=2 + 2)
+    if [r["iter"] for r in resumed["records"]] != [3, 4]:
+        raise AssertionError(f"phase 12 resume: steps {[r['iter'] for r in resumed['records']]}")
+    straight = {r["iter"]: r for r in recs}
+    gap = 0.0
+    for r in resumed["records"]:
+        for k in loop_mod.LOSS_KEYS:
+            a, b = r[k], straight[r["iter"]][k]
+            if not abs(a - b) <= 5e-3 * abs(b):
+                raise AssertionError(f"phase 12 resume: step {r['iter']} {k} {a} vs {b}")
+            gap = max(gap, abs(a - b) / abs(b) if b else 0.0)
+    log(f"phase 12 swin: resumed steps 3-4 within {gap:.3e} relative of the straight run's "
+        f"losses (bound 5e-3)")
+
+    _reset_counts()
+    x_tiny = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    x_big = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((2, 512, 512, 3)).astype(np.float32)).cuda()
+    for name, make, tiny, grid, kw in _zoo_families():
+        m = tiny()
+        init_params(m, torch.Generator().manual_seed(0))
+        card = copy.deepcopy(m).cuda()
+        with torch.no_grad():
+            ref = _outputs(m(torch.from_numpy(x_tiny), **kw))
+            got = _outputs(card(torch.from_numpy(x_tiny).cuda(), **kw))
+        tiny_err = max(float((g.cpu() - r).abs().max()) for g, r in zip(got, ref))
+        if not tiny_err <= 1e-4:
+            raise AssertionError(f"phase 12 {name}: tiny config card vs CPU {tiny_err}")
+        del m, card
+        m = make(torch.bfloat16).cuda()
+        init_params(m, torch.Generator(device="cuda").manual_seed(0))
+        bns = [b for b in m.modules() if isinstance(b, BatchNorm)]
+        before = [b.running_var.clone() for b in bns]
+        with torch.no_grad():
+            m(x_big, **kw)  # warm-up: cuDNN's choice of algorithms, the allocator
+            ms = {}
+            for train in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ys = _outputs(m(x_big, train=train, **kw))
+                torch.cuda.synchronize()
+                ms["train" if train else "eval"] = (time.perf_counter() - t0) * 1e3
+                finite = all(bool(torch.isfinite(y).all()) for y in ys)
+                if ys[0].shape != (2, grid, grid, 21) or not finite:
+                    raise AssertionError(f"phase 12 {name}: output {tuple(ys[0].shape)}, "
+                                         f"finite {finite}")
+        moved = sum(not torch.equal(b.running_var, v) for b, v in zip(bns, before))
+        if moved != len(bns):
+            raise AssertionError(f"phase 12 {name}: {moved} of {len(bns)} BatchNorms moved")
+        n_params = sum(p.numel() for p in m.parameters())
+        log(f"phase 12 {name}: tiny config card vs CPU {tiny_err:.3e} (bound 1e-4); "
+            f"published width ({n_params / 1e6:.1f} M params) batch 2 at 512^2 bf16 -> "
+            f"({grid}, {grid}, 21): eval {ms['eval']:.2f} ms, train {ms['train']:.2f} ms "
+            f"per forward, {len(bns)} BatchNorms moved, on {smi}")
+        del m, ys
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts["seg_only"] = _counts()
+    if counts["seg_only"] != _want():
+        raise AssertionError(f"phase 12 seg-only: launch counts {counts['seg_only']}")
+    log("phase 12 ok: Swin-B from its mmseg file, K3 once a step, no K1/K2; validations, "
+        "final eval and resume; every seg-only family finite at its published width and "
+        "within 1e-4 of the CPU at its tiny config")
+    return counts
+
+
 def phase_microbench():
     """K4's path: the softmax microbenchmark's entry point, as a user runs
     it. Returns the launch counts of that run."""
@@ -1457,12 +1697,13 @@ def main() -> int:
     optin.update(phase_host_crf(smi, out, cfg, device_time))
     pseudo = phase_pseudo_submission(smi, out, cfg)
     variants = phase_variants(smi, cfg.data_root)
+    zoo = phase_zoo(smi, cfg.data_root)
     for r in rows:
         # launches on the kernel's own path: training for K1-K3, the
         # microbenchmark for K4; the other paths' runs beside them
         r["launches"] = (mb_counts if r["name"].startswith("flash_fwd_") else counts)[r["name"]]
         for key, runs in (("scoring", scoring), ("optin", optin), ("pseudo", pseudo),
-                          ("variant", variants)):
+                          ("variant", variants), ("zoo", zoo)):
             r[f"{key}_launches"] = {tag: c[r["name"]] for tag, c in runs.items()}
         r["ok"] = True
     log(json.dumps({"kernels": rows}))

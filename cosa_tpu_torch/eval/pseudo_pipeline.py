@@ -27,6 +27,7 @@ import torch
 
 from cosa_tpu_torch.eval.crf import crf_refine_host, crf_refine_native
 from cosa_tpu_torch.eval.metrics import fast_hist, scores_from_hist
+from cosa_tpu_torch.models.network import require_cosa_interface
 from cosa_tpu_torch.objectives.pseudo import cam2mask, cam_validation, multi_scale_camseg
 from cosa_tpu_torch.ops.image import denormalize01, normalize
 from cosa_tpu_torch.ops.par import par_refine
@@ -90,6 +91,7 @@ def generate_pseudo_labels(
     ``{out_dir}/mask/{name}.png`` (palette) and ``{out_dir}/cam/{name}.npy``
     (the crop-resolution validated CAM); returns the masks' scores
     (:func:`~cosa_tpu_torch.eval.metrics.scores_from_hist`)."""
+    require_cosa_interface(cfg)
     dev = resolve_device(device)
     os.makedirs(os.path.join(out_dir, "mask"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "cam"), exist_ok=True)

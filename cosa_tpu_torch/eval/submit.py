@@ -22,6 +22,7 @@ from PIL import Image
 
 from cosa_tpu_torch.data.datasets import SyntheticBase
 from cosa_tpu_torch.eval.engine import _eval_batch
+from cosa_tpu_torch.models.network import require_cosa_interface
 from cosa_tpu_torch.utils.device import resolve_device
 from cosa_tpu_torch.utils.visualize import save_seg
 
@@ -58,6 +59,7 @@ def dump_submission(
     each batch's canvas on the device; the host backends refine one image
     at a time (batch 1) from its cropped validated probabilities. Returns
     the directory holding the PNGs."""
+    require_cosa_interface(cfg)
     dev = resolve_device(device)
     dst = submission_dir(out_dir, cfg.dataset)
     os.makedirs(dst, exist_ok=True)

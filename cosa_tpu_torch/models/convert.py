@@ -14,15 +14,19 @@ tree of numpy arrays:
   classifier (D, C-1)                    -> classifier.weight (C-1, D, 1, 1)
 
 The keys are the reference's, so a CoSA ``.pth`` (LargeFOV or Maskformer)
-also loads with plain ``load_state_dict``. :func:`load_pretrained_into_state`
-loads a reference-key or a timm-key ``.pth``, or an original AugReg
-``.npz`` (:func:`state_dict_from_augreg_npz`), into the student and the
-teacher of a training state.
+also loads with plain ``load_state_dict``. A zoo model's tree (its modules
+carry the JAX names) converts leaf by leaf, params and ``batch_stats``.
+:func:`load_pretrained_into_state` loads a reference-key or a timm-key
+``.pth``, or an original AugReg ``.npz`` (:func:`state_dict_from_augreg_npz`),
+an mmseg Swin ``.pth`` (:func:`state_dict_from_mmseg_swin`) or an NVlabs
+SegFormer ``.pth`` (:func:`state_dict_from_segformer`) into the student
+and the teacher of a training state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import re
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -45,7 +49,46 @@ def _norm(prefix: str, p: Dict[str, Any], out: Dict[str, torch.Tensor]) -> None:
     out[prefix + ".bias"] = _t(p["bias"])
 
 
-def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def _zoo_state_dict(params: Dict[str, Any],
+                    batch_stats: Optional[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
+    """A zoo model's tree: the port's modules carry the JAX tree's names,
+    so each leaf only changes its name and layout (``kernel`` -> ``weight``,
+    Dense transposed, Conv HWIO -> OIHW; ``scale`` -> ``weight``; the CAM
+    classifiers (D, C-1) -> (C-1, D, 1, 1); ``batch_stats`` ``mean``/``var``
+    -> ``running_mean``/``running_var``; ``rel_pos_bias`` as stored)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix, stats):
+        for k, v in tree.items():
+            name = prefix + k
+            if isinstance(v, dict):
+                walk(v, name + ".", stats)
+                continue
+            a = np.asarray(v)
+            if stats:
+                sd[prefix + {"mean": "running_mean", "var": "running_var"}[k]] = _t(a)
+            elif k == "kernel":
+                sd[prefix + "weight"] = _t(a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T)
+            elif k == "scale":
+                sd[prefix + "weight"] = _t(a)
+            elif name in ("classifier", "aux_classifier"):
+                sd[name + ".weight"] = _t(a.T[:, :, None, None])
+            else:
+                sd[name] = _t(a)
+
+    walk(params, "", False)
+    walk(batch_stats or {}, "", True)
+    return sd
+
+
+def state_dict_from_jax(params: Dict[str, Any],
+                        batch_stats: Optional[Dict[str, Any]] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's state dict of a JAX ``params`` tree (and, for the zoo's
+    BatchNorm families, its ``batch_stats``): CoSANetwork's by the table
+    above, a zoo model's by :func:`_zoo_state_dict`."""
+    if "cls_token" not in params.get("encoder", {}):
+        return _zoo_state_dict(params, batch_stats)
     enc = params["encoder"]
     sd: Dict[str, torch.Tensor] = {
         "encoder.patch_embed.proj.weight": _t(
@@ -143,31 +186,111 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return sd["model"] if "model" in sd else sd
 
 
+def state_dict_from_mmseg_swin(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A ``SwinBackbone`` state dict from an mmseg/mmcv Swin checkpoint (the
+    weights the reference's MMSWIN/MMSegModel wrappers load; the JAX
+    package's ``swin_params_from_mmseg``, models/convert.py:191-242). Keys
+    with or without mmseg's ``backbone.`` prefix; the layouts are torch's
+    on both sides, so only the names change:
+
+      patch_embed.projection / patch_embed.norm -> patch_embed / patch_norm
+      stages.I.blocks.J.norm{1,2}               -> stageI_blockJ.norm{1,2}
+      ...attn.w_msa.{qkv,proj}                  -> ...attn.{qkv,proj}
+      ...attn.w_msa.relative_position_bias_table -> ...attn.rel_pos_bias
+      ...ffn.layers.0.0 / ffn.layers.1          -> ...fc1 / fc2
+      stages.I.downsample.{norm,reduction}      -> mergeI.{norm,reduction}
+      normI                                     -> normI
+
+    ``relative_position_index`` is dropped: the port recomputes that
+    constant with the same formula."""
+    if any(k.startswith("backbone.") for k in sd):
+        sd = {k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")}
+    rules = ((r"^patch_embed\.projection\.", "patch_embed."),
+             (r"^patch_embed\.norm\.", "patch_norm."),
+             (r"^stages\.(\d+)\.blocks\.(\d+)\.", r"stage\1_block\2."),
+             (r"^stages\.(\d+)\.downsample\.", r"merge\1."),
+             (r"\.attn\.w_msa\.relative_position_bias_table$", ".attn.rel_pos_bias"),
+             (r"\.attn\.w_msa\.", ".attn."),
+             (r"\.ffn\.layers\.0\.0\.", ".fc1."),
+             (r"\.ffn\.layers\.1\.", ".fc2."))
+    out = {}
+    for k, v in sd.items():
+        if k.endswith("relative_position_index"):
+            continue
+        for pat, rep in rules:
+            k = re.sub(pat, rep, k)
+        out[k] = v
+    return out
+
+
+def state_dict_from_segformer(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A ``MixVisionTransformer`` state dict from an official SegFormer
+    (NVlabs) checkpoint (the module the reference vendors at
+    models/vit/mix_transformer.py:18-378; the JAX package's
+    ``mit_params_from_torch``, models/convert.py:245-292). Stages s = 1..4:
+
+      patch_embed{s}.proj / patch_embed{s}.norm -> patch_embed{s} / patch_norm{s}
+      block{s}.J.attn.{q,kv,proj,sr}            -> block{s}_J.attn.{q,kv,proj,sr}
+      block{s}.J.attn.norm                      -> block{s}_J.attn.sr_norm
+      block{s}.J.mlp.dwconv.dwconv              -> block{s}_J.mlp.dwconv
+      norm{s}, block{s}.J.{norm1,norm2,mlp.fc1,mlp.fc2}: the same
+
+    The head's keys (``head.*``, a classifier's) are dropped by the loader,
+    as keys the network lacks."""
+    rules = ((r"^patch_embed(\d)\.proj\.", r"patch_embed\1."),
+             (r"^patch_embed(\d)\.norm\.", r"patch_norm\1."),
+             (r"^block(\d)\.(\d+)\.", r"block\1_\2."),
+             (r"\.attn\.norm\.", ".attn.sr_norm."),
+             (r"\.mlp\.dwconv\.dwconv\.", ".mlp.dwconv."))
+    out = {}
+    for k, v in sd.items():
+        for pat, rep in rules:
+            k = re.sub(pat, rep, k)
+        out[k] = v
+    return out
+
+
 def load_pretrained_into_state(cfg, state):
     """Load ``cfg.pretrained_path`` into student AND teacher (the reference
     builds both networks on the same pretrained backbone, main.py:45-46), as
-    the JAX package's loader for ``model="vit"`` (models/convert.py:318-354):
-    a reference-key ``.pth`` (``encoder.*`` plus heads), a timm-key encoder
-    ``.pth`` or an AugReg ``.npz``. Keys the network does not have are
-    dropped (``strict=False``,
-    the JAX package's ``_filter_to``); every encoder tensor of the network
-    must be in the file. Returns ``state``."""
+    the JAX package's loader does (models/convert.py:318-354):
+
+      model 'vit'          a reference-key ``.pth`` (``encoder.*`` plus
+                           heads), a timm-key encoder ``.pth`` or an AugReg
+                           ``.npz``;
+      model 'swinend2end'  an mmseg/mmcv Swin ``.pth`` (the backbone);
+      model 'segformer'    an official SegFormer (NVlabs) ``.pth`` (the encoder).
+
+    Keys the network does not have are dropped (``strict=False``, the JAX
+    package's ``_filter_to``: e.g. an mmseg file's norm0-norm2, where
+    SwinNetwork builds norm3 only); every backbone tensor of the network
+    must be in the file, else ``KeyError``. Returns ``state``."""
     path = cfg.pretrained_path
-    if cfg.model != "vit":
-        raise NotImplementedError(
-            f"pretrained weights for model '{cfg.model}': the model zoo and its "
-            "loaders are ROADMAP Queue 1 items 16 and 19")
-    if path.endswith(".npz"):
-        sd = state_dict_from_augreg_npz(path, BACKBONES[cfg.backbone].depth)
+    if cfg.model == "swinend2end":
+        prefix = "backbone."
+        sd = {prefix + k: v for k, v in
+              state_dict_from_mmseg_swin(load_torch_checkpoint(path)).items()}
+    elif cfg.model == "segformer":
+        prefix = "encoder."
+        sd = {prefix + k: v for k, v in
+              state_dict_from_segformer(load_torch_checkpoint(path)).items()}
+    elif cfg.model == "vit":
+        prefix = "encoder."
+        if path.endswith(".npz"):
+            sd = state_dict_from_augreg_npz(path, BACKBONES[cfg.backbone].depth)
+        else:
+            sd = load_torch_checkpoint(path)
+        if not any(k.startswith(prefix) for k in sd):
+            sd = {prefix + k: v for k, v in sd.items()}  # timm's encoder keys
     else:
-        sd = load_torch_checkpoint(path)
-    if not any(k.startswith("encoder.") for k in sd):
-        sd = {"encoder." + k: v for k, v in sd.items()}  # timm's encoder keys
+        raise NotImplementedError(
+            f"pretrained weights for model '{cfg.model}': the JAX package loads "
+            "files for 'vit', 'swinend2end' and 'segformer' only")
     own = state.student.state_dict()
     sd = {k: v for k, v in sd.items() if k in own}
-    missing = sorted(k for k in own if k.startswith("encoder.") and k not in sd)
+    missing = sorted(k for k in own if k.startswith(prefix) and k not in sd)
     if missing:
-        raise KeyError(f"{path} lacks encoder weights: {missing[:4]}")
+        raise KeyError(f"{path} lacks {prefix[:-1]} weights: {missing[:4]}")
     for model in (state.student, state.teacher):
         model.load_state_dict(sd, strict=False)
     return state

@@ -2,11 +2,13 @@
 ``torch.optim.AdamW`` (reference utils/torch_helper.py:261-293 for the
 schedule, main.py:57-72 for the groups):
 
-  backbone  encoder, non-norm params   lr,           wd
-  norm      encoder norm params        lr,           wd * wt_dec_mult
-  head      classifier + aux           lr * lrscale, wd
-  decoder   decoder                    lr * lrscale, wd
-  frozen    pos_embed                  not in the optimizer
+  backbone  encoder / Swin backbone, non-norm params   lr,           wd
+  norm      their norms (+ Swin's rel_pos_bias)        lr,           wd * wt_dec_mult
+  head      classifier + aux                           lr * lrscale, wd
+  decoder   decoder                                    lr * lrscale, wd
+  frozen    pos_embed                                  not in the optimizer
+
+``freeze_norm`` takes the norm group out of the optimizer too.
 
 Each step sets every group's lr to schedule(step) before ``step()``.
 """
@@ -44,6 +46,11 @@ def param_label(name: str) -> str:
         return "frozen"
     if name.startswith("encoder"):
         return "norm" if "norm" in name else "backbone"
+    if name.startswith("backbone"):
+        # SwinNetwork ('swinend2end'): the reference MMSWIN puts the norms
+        # and the relative-position bias tables in the norm group
+        # (mmsegmodel/__init__.py:88,131-148)
+        return "norm" if ("norm" in name or "rel_pos_bias" in name) else "backbone"
     if "classifier" in name:  # classifier / aux_classifier
         return "head"
     if name.startswith("decoder"):
@@ -57,8 +64,8 @@ class PolyWarmupAdamW:
     def __init__(self, cfg, model: torch.nn.Module):
         if cfg.optimizer != "poly_adamw":
             raise NotImplementedError(
-                f"optimizer '{cfg.optimizer}': the port has poly_adamw only "
-                "(the reference's unused constructors are not ported)"
+                f"optimizer '{cfg.optimizer}': the port has poly_adamw only; the "
+                "reference's unused constructors are ROADMAP Queue 1 item 19"
             )
         self.sched = poly_warmup_schedule(
             1.0, cfg.lr_warmup_iters, cfg.max_iters, 1e-6, 0.9, cfg.min_mult

@@ -24,9 +24,11 @@ from __future__ import annotations
 from functools import partial
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
+from cosa_tpu_torch.models.network import require_cosa_interface
 from cosa_tpu_torch.objectives.energy import get_energy_loss
 from cosa_tpu_torch.objectives.losses import (
     cam_loss_v1,
@@ -85,9 +87,17 @@ def _gmm_update(cfg, gmm: GMMState, valid_cam, valid_cam_aux) -> None:
         setattr(gmm, hi_k, getattr(gmm, hi_k) * d + hi * (1 - d))
 
 
+def drop_path_generator(seed: int, step: int, device) -> torch.Generator:
+    """The student's stochastic-depth draws of ``step``: a generator on
+    ``device`` seeded from ``(seed, step)`` alone, so a resumed run draws
+    the masks of the straight one (the JAX package folds the step into
+    ``PRNGKey(seed)``; torch's numbers cannot equal jax.random's)."""
+    key = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(key)
+
+
 def build_train_step(cfg) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dict]:
-    if cfg.model != "vit":
-        raise NotImplementedError(f"model '{cfg.model}' (ROADMAP Queue 1 item 19)")
+    require_cosa_interface(cfg)
     camloss_fn = {
         "v1": cam_loss_v1,
         "v2": cam_loss_v2,
@@ -151,8 +161,15 @@ def build_train_step(cfg) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dic
                 )
 
         # ---- student loss ------------------------------------------------
+        # the Swin student trains with live stochastic depth (torch
+        # .train() makes the reference MMSWIN's DropPath live); the teacher
+        # and evaluation stay deterministic
+        student_kw = {}
+        if cfg.model == "swinend2end":
+            student_kw = dict(train=True, generator=drop_path_generator(
+                cfg.seed, state.step, simg.device))
         with record_function("student_forward"):
-            out = state.student(simg, detach=cfg.detach)
+            out = state.student(simg, detach=cfg.detach, **student_kw)
         with record_function("losses"):
             cls_loss = multilabel_soft_margin(out["cls"], cls_label)
             cls_aux_loss = multilabel_soft_margin(out["cls_aux"], cls_label)

@@ -13,7 +13,8 @@ abs error <= 1e-2 against its plain version with a cosine >= 0.9999
 against K1 (chip_smoke.py holds the same kernels at the main path's
 shapes). The opt-in path's torch ops on the card against the CPU: the
 permutohedral lattice's integer structure equal, its filter within 1e-5
-relative and bitwise repeatable; GMM thresholds and PAR within 1e-5."""
+relative and bitwise repeatable; GMM thresholds and PAR within 1e-5; the
+zoo's swin_tiny_test forward within 1e-4."""
 
 import math
 
@@ -360,3 +361,21 @@ def test_gmm_and_par_on_the_card_match_the_cpu(gpu):
     ref = par_refine(imgs, masks, num_iter=4)
     out = par_refine(imgs.to(gpu), masks.to(gpu), num_iter=4).cpu()
     assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_swin_tiny_forward_on_the_card_matches_the_cpu(gpu):
+    """swin_tiny_test's SwinNetwork in f32 (TF32 off, utils/device.py), one
+    seeded init on both sides, a 60 input (padded windows): every output
+    on the card within 1e-4 of the CPU's."""
+    from cosa_tpu_torch.config import preset_config
+    from cosa_tpu_torch.models.network import build_model
+
+    cfg = preset_config("synthetic", model="swinend2end", backbone="swin_tiny_test",
+                        num_classes=6, mixed_precision=False)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 60, 60, 3)).astype(
+        np.float32))
+    with torch.no_grad():
+        ref = build_model(cfg, "cpu")(x)
+        out = build_model(cfg, gpu)(x.to(gpu))
+    for k, v in ref.items():
+        assert float((out[k].cpu() - v).abs().max()) <= 1e-4, k

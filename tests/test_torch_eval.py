@@ -145,9 +145,13 @@ def _record_hists(monkeypatch, module, fn):
     return seen
 
 
-def test_evaluate_matches_jax(monkeypatch):
-    kw = dict(backbone="vit_tiny_test", crop_size=64, mixed_precision=False,
-              flash_attention=False, eval_batch=2, crf_reduce=8)
+def _evaluate_both(monkeypatch, **kw):
+    """evaluate() of one JAX init through both packages, on the synthetic
+    val split (5 images, crop 64, the default five eval scales, the device
+    CRF at crf_reduce 8, one threshold filter), held to the tolerances
+    above."""
+    kw = dict(crop_size=64, mixed_precision=False, flash_attention=False, eval_batch=2,
+              crf_reduce=8, **kw)
     cfg_j, cfg_t = jax_preset("synthetic", **kw), torch_preset("synthetic", **kw)
     model_j = jax_build_model(cfg_j)
     params = model_j.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))["params"]
@@ -170,3 +174,14 @@ def test_evaluate_matches_jax(monkeypatch):
         assert np.abs(a - b).sum() <= 1e-3 * b.sum(), name
         assert abs(ours[name]["miou"] - ref[name]["miou"]) <= 1e-3, name
     assert model_t.training  # evaluate puts the module's mode back
+
+
+def test_evaluate_matches_jax(monkeypatch):
+    _evaluate_both(monkeypatch, backbone="vit_tiny_test")
+
+
+def test_evaluate_swin_matches_jax(monkeypatch):
+    """The zoo's co-training family: a Swin model's CAM (/32) and aux CAM
+    (/16) at two sizes on the canvas; the 0.75 and 1.25 scales of crop 64
+    pad its windows, the smallest stages are single windows."""
+    _evaluate_both(monkeypatch, model="swinend2end", backbone="swin_tiny_test")

@@ -67,7 +67,7 @@ def test_unported_options_raise_up_front(tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _tiny(**kw)
     with pytest.raises(NotImplementedError, match="item 19"):
-        train(_tiny(work_dir=str(tmp_path), model="swinend2end"), device="cpu")
+        train(_tiny(work_dir=str(tmp_path), optimizer="poly_sgd"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         evaluate(_tiny(), None, None, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="native"):

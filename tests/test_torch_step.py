@@ -5,9 +5,11 @@ f32, two TTA scales, gate open, energy weight 1), run with the exact, the
 RFF and the lattice energy filter (the JAX package's lattice built before
 its step, the port's inside it), once with GMM thresholds and PAR on, with one
 seeded queue injected into both (the JAX package draws its queues from
-jax.random), and once each with the MaskTransformer decoder and with the
-distilled DeiT backbone. Student and teacher start from different JAX inits
-carried into the port with state_dict_from_jax; the same batch goes to
+jax.random), once each with the MaskTransformer decoder and with the
+distilled DeiT backbone, and twice with the zoo's Swin co-training family
+(``swinend2end``, once with ``use_cammix``). Student and teacher start
+from different JAX inits carried into the port with state_dict_from_jax;
+the same batch goes to
 both steps. Every metric is held to that file's tolerances; after the step
 every student and teacher tensor (pos_embed included) agrees within 1e-5
 of its largest value, and no less than 1e-8: a tensor that starts at zero
@@ -55,6 +57,11 @@ GMM_PAR = dict(usegmm=True, usepar=True, queue_update_ratio=4, par_dilations=(1,
 # the other architectures: the MaskTransformer decoder, the distilled DeiT
 MASKFORMER = dict(decoder="Maskformer")
 DISTILLED = dict(backbone="deit_tiny_test_distilled")
+# the zoo's co-training family: Swin (drop path 0 in swin_tiny_test); the
+# aux tap (-2 of 4 blocks) is 64 wide at /16, cam 128 wide at /32, so
+# use_cammix mixes the two CAM sizes after the TTA fuse
+SWIN = dict(model="swinend2end", backbone="swin_tiny_test")
+SWIN_CAMMIX = dict(SWIN, use_cammix=True)
 
 
 def _batch():
@@ -85,9 +92,10 @@ def _assert_params(module, jax_params, what):
 
 @pytest.mark.parametrize("kind,extra", [("exact", {}), ("rff", {}), ("lattice", {}),
                                         ("rff", GMM_PAR), ("rff", MASKFORMER),
-                                        ("rff", DISTILLED)],
+                                        ("rff", DISTILLED), ("rff", SWIN),
+                                        ("rff", SWIN_CAMMIX)],
                          ids=["exact", "rff", "lattice", "rff-gmm-par", "rff-maskformer",
-                              "rff-distilled"])
+                              "rff-distilled", "rff-swin", "rff-swin-cammix"])
 def test_train_step_matches_jax(kind, extra):
     from cosa_tpu.objectives.energy import build_energy_lattice as jax_lattice
 
