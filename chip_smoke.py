@@ -65,6 +65,21 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      config on the card against the CPU (1e-4), and at its published
      width, batch 2 at 512^2, one eval- and one train-mode forward
      (finite on its grid, BatchNorm statistics moved, ms per forward);
+ 13. the int8 teacher, the other optimizers and the legacy surface at the
+     main path's width: the int8 dense (torch._int_mm) on the card against
+     the CPU at the 672 scale's qkv and fc1 shapes (1 ulp, expected
+     bitwise); the int8 microbenchmark (cli/microbench_int8.py); 4 steps
+     of the default configuration with teacher_int8 at min_size 512 (the
+     672 scale) and at 0 (every scale), exact launch counts and the int8
+     products, sec/iter beside phase 4's; from one state and batch, one
+     step with each against the bf16 teacher (the TTA CAMs' cosine > 0.98,
+     the pseudo-mask pixels that differ); 3 steps each of cos_adamw,
+     poly_sgd and poly_cls_sgd (the logged lr equals the schedule, losses
+     finite, poly_cls_sgd with freeze_norm leaves the norms as they
+     were); rrm.compute_joint_loss at crop 448 batch 4 (K3 once, within
+     1e-3 of the CPU) and multi_scale_camseg_v2 on the bf16 ViT-B teacher
+     (K1 at every scale, within 1e-5 of the live fuse in f32, the step's
+     bf16 CAM fuse read beside it);
 then print the kernels' JSON line, the card's name and power limit, and
 the device JSON line last.
 
@@ -712,7 +727,7 @@ def phase_main_path(smi: str):
     log(f"phase 4 ok: sec/iter median over steps 2-{steps} = {med:.4f} s "
         f"({cfg.batch_size / med:.2f} img/s) on {smi}; losses finite; "
         f"last {json.dumps({k: recs[-1][k] for k in keys})}")
-    return counts, res["energy_convention"]
+    return counts, res["energy_convention"], med
 
 
 def _student_qkv_grads(state, simg, detach):
@@ -1671,6 +1686,284 @@ def phase_microbench():
     return counts
 
 
+# phase 13's bounds: the int8 dense on the card against the CPU, in ulps of
+# the output dtype (the codes and the int32 product are exact, the rescale
+# the same IEEE operations: expected 0); the int8 teacher's TTA CAMs'
+# cosine to the bf16 teacher's (the JAX package's own bound,
+# tests/test_train_step.py:208-212); the legacy v2 fuse against the live
+# one on the same bf16 teacher, both fusing in f32 (the same operations in
+# the same order: expected 0). The step's bf16 CAM fuse is read beside it
+# and not bound: it rounds the ReLU sum at its magnitude, and a random-init
+# CAM's offset is many times its spread, which min-max normalization
+# magnifies (0.116 of the range at a small width on the CPU)
+INT8_ULPS = 1
+INT8_CAM_COS = 0.98
+V2_GAP = 1e-5
+
+
+def _max_ulps(a, b) -> float:
+    """The largest |a - b| in units of b's last place in b's dtype."""
+    import torch
+
+    mant = {torch.bfloat16: 8, torch.float32: 24}[b.dtype]
+    a64, b64 = a.double().cpu(), b.double().cpu()
+    tiny = torch.finfo(b.dtype).tiny
+    ulp = torch.exp2(torch.floor(torch.log2(b64.abs().clamp_min(tiny))) - (mant - 1))
+    return float(((a64 - b64).abs() / ulp).max())
+
+
+def _int8_dense_vs_cpu():
+    """The int8 dense at the 672 TTA scale's qkv and fc1 shapes (8 x 1765
+    rows, K 768, N 2304 and 3072, bf16 out) on the card against the
+    CPU's plain path: (max ulps, entries that differ) per N."""
+    import torch
+
+    from cosa_tpu_torch.models import quant
+
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn((8, 1765, 768), generator=g).to(torch.bfloat16)
+    out = {}
+    for n in (2304, 3072):
+        lin = torch.nn.Linear(768, n).requires_grad_(False)
+        with torch.no_grad():
+            lin.weight.normal_(0.0, 768 ** -0.5, generator=g)
+            lin.bias.normal_(0.0, 0.02, generator=g)
+        ref = quant.int8_matmul(x, lin, torch.bfloat16)
+        got = quant.int8_matmul(x.cuda(), lin.cuda(), torch.bfloat16)
+        torch.cuda.synchronize()
+        out[n] = (_max_ulps(got, ref), int((got.cpu() != ref).sum()))
+        log(f"  int8 dense (14120, 768) x (768, {n}) bf16: card vs CPU max "
+            f"{out[n][0]:.0f} ulp, {out[n][1]} of {ref.numel()} entries differ")
+    return out
+
+
+def _int8_runs(smi: str, sec_iter: float, counts: dict):
+    """4 steps of the default configuration with the int8 teacher at
+    min_size 512 (the 672 scale: 48 int8 products a step) and 0 (every
+    scale: 144); exact launch counts as phase 4's."""
+    import torch
+
+    from cosa_tpu_torch.models import quant
+    from cosa_tpu_torch.train.loop import LOSS_KEYS, train
+
+    for min_size, per_step in ((512, 48), (0, 144)):
+        tag = f"int8_min{min_size}"
+        cfg = _main_cfg(name=tag, teacher_int8=True, teacher_int8_min_size=min_size,
+                        max_iters=4)
+        _reset_counts()
+        quant.LAUNCHES["int8_mm"] = 0
+        res = train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        counts[tag] = _counts()
+        mm = quant.LAUNCHES["int8_mm"]
+        want = _want(flash_fwd=48 * 4, flash_bwd=12 * 4, rff_phi=4 + 2)
+        if counts[tag] != want or mm != per_step * 4:
+            raise AssertionError(f"phase 13 {tag}: launches {counts[tag]}, int8 products "
+                                 f"{mm}; want {want}, {per_step * 4}")
+        recs = res["records"]
+        if len(recs) != 4 or not all(math.isfinite(r[k]) for r in recs for k in LOSS_KEYS):
+            raise AssertionError(f"phase 13 {tag}: losses {recs}")
+        med = statistics.median(r["itertime"] for r in recs[1:])
+        log(f"phase 13 {tag}: sec/iter median {med:.4f} s over steps 2-4 (phase 4's bf16 "
+            f"teacher {sec_iter:.4f} s), int8 products {mm}, launches {counts[tag]}, last "
+            f"losses {json.dumps({k: recs[-1][k] for k in LOSS_KEYS})}, on {smi}")
+
+
+def _int8_vs_bf16_step(convention: float):
+    """From one state and batch: one step with the bf16 teacher and one
+    with the int8 teacher at min_size 512 and 0. Returns, for each int8
+    step, the cosine of its TTA CAMs to the bf16 step's and the share of
+    pseudo-mask pixels (main and aux head) that differ."""
+    import torch
+
+    import cosa_tpu_torch.train.step as step_mod
+    from cosa_tpu_torch.data.loader import build_train_loader
+    from cosa_tpu_torch.train.state import create_train_state
+    from cosa_tpu_torch.train.step import build_train_step
+
+    base = _main_cfg(name="int8_cmp", energy_convention=convention, warmup_iters=-1)
+    loader = build_train_loader(base, base.batch_size)
+    try:
+        batch = next(loader)
+    finally:
+        loader.close()
+    cams, masks = {}, {}
+    tta, cam2mask = step_mod.multi_scale_camseg, step_mod.cam2mask
+    try:
+        for tag, kw in (("bf16", {}), ("min512", dict(teacher_int8=True)),
+                        ("min0", dict(teacher_int8=True, teacher_int8_min_size=0))):
+            cams[tag], masks[tag] = [], []
+            step_mod.multi_scale_camseg = _recording(tta, cams[tag])
+            step_mod.cam2mask = _recording(cam2mask, masks[tag])
+            cfg = base.replace(**kw)
+            state = create_train_state(cfg, "cuda")
+            build_train_step(cfg)(state, {k: torch.from_numpy(v).cuda()
+                                          for k, v in batch.items()})
+            del state
+    finally:
+        step_mod.multi_scale_camseg, step_mod.cam2mask = tta, cam2mask
+    out = {}
+    for tag in ("min512", "min0"):
+        cos = _cosine(cams[tag][0][0], cams["bf16"][0][0])
+        flips = sum(int((a != b).sum()) for a, b in zip(masks[tag], masks["bf16"]))
+        pixels = sum(m.numel() for m in masks["bf16"])
+        out[tag] = (cos, flips / pixels)
+        log(f"phase 13 int8 teacher ({tag}) vs bf16 teacher, one step: TTA CAM cosine "
+            f"{cos:.6f}, pseudo-mask pixels that differ {flips} of {pixels} "
+            f"({flips / pixels:.4%})")
+    return out
+
+
+def _optimizer_runs(smi: str, counts: dict):
+    """3 steps of each of the reference's other optimizers: the logged lr
+    equals the backbone group's schedule, finite losses; poly_cls_sgd runs
+    with freeze_norm and must leave the student's norms at their init."""
+    import torch
+
+    from cosa_tpu_torch.models.network import build_model
+    from cosa_tpu_torch.train.loop import LOSS_KEYS, train
+    from cosa_tpu_torch.train.optimizer import lr_schedule, param_label
+
+    for kind in ("cos_adamw", "poly_sgd", "poly_cls_sgd"):
+        cfg = _main_cfg(name=f"opt_{kind}", optimizer=kind, max_iters=3,
+                        freeze_norm=kind == "poly_cls_sgd")
+        _reset_counts()
+        res = train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        counts[kind] = _counts()
+        want = _want(flash_fwd=48 * 3, flash_bwd=12 * 3, rff_phi=3 + 2)
+        if counts[kind] != want:
+            raise AssertionError(f"phase 13 {kind}: launches {counts[kind]} != {want}")
+        recs = res["records"]
+        sched = lr_schedule(cfg, 1.0)
+        lrs = [(r["lr"], sched(r["iter"] - 1)) for r in recs]
+        if len(recs) != 3 or any(a != b for a, b in lrs) or not all(
+                math.isfinite(r[k]) for r in recs for k in LOSS_KEYS):
+            raise AssertionError(f"phase 13 {kind}: lr (logged, schedule) {lrs}, {recs}")
+        frozen = None
+        if cfg.freeze_norm:
+            init = build_model(cfg, "cuda", seed=cfg.seed).state_dict()
+            own = res["state"].student.state_dict()
+            norms = [k for k in own if param_label(k) == "norm"]
+            frozen = len(norms)
+            if not norms or not all(torch.equal(own[k], init[k]) for k in norms):
+                raise AssertionError(f"phase 13 {kind}: freeze_norm moved a norm")
+        log(f"phase 13 {kind}: lr {[f'{a:.4e}' for a, _ in lrs]} equal to the schedule, "
+            f"losses {[round(r['overall_loss'], 5) for r in recs]}, norms unchanged: "
+            f"{frozen if frozen is not None else 'not frozen'}, launches {counts[kind]}, "
+            f"on {smi}")
+
+
+def _legacy_on_the_card(counts: dict):
+    """rrm.compute_joint_loss at crop 448 batch 4 (K3 once; the value within
+    1e-3 relative of the CPU's plain path) and multi_scale_camseg_v2
+    ('max', 'sum') / ('sum', 'sum') on the bf16 ViT-B teacher against the
+    live multi_scale_camseg with f32 CAM arithmetic (K1 12 times a scale
+    each; within V2_GAP), the step's bf16 CAM fuse read beside it."""
+    import numpy as np
+    import torch
+
+    from cosa_tpu_torch.data.loader import build_train_loader
+    from cosa_tpu_torch.models.network import build_model
+    from cosa_tpu_torch.objectives.pseudo import multi_scale_camseg
+    from cosa_tpu_torch.objectives.variants import multi_scale_camseg_v2
+    from cosa_tpu_torch.ops.image import normalize
+    from cosa_tpu_torch.utils import rrm
+
+    cfg = _main_cfg(name="legacy")
+    loader = build_train_loader(cfg, cfg.batch_size)
+    try:
+        batch = next(loader)
+    finally:
+        loader.close()
+    rng = np.random.default_rng(17)
+    b, h = cfg.batch_size, cfg.crop_size
+    imgs = normalize(torch.from_numpy(batch["simg"]))
+    logits = torch.from_numpy(rng.standard_normal((b, h // 16, h // 16, 21)).astype(np.float32))
+    label = rng.integers(0, 21, (b, h, h)).astype(np.int32)
+    label[:, :40] = 255
+    crop = np.zeros((b, h, h), np.float32)
+    for i in range(b):
+        crop[i, 8 * i:h - 4 * i, 16 * i:h - 8 * i] = 1.0
+    args = (imgs, logits, torch.from_numpy(label), torch.from_numpy(crop))
+    ref = [float(v) for v in rrm.compute_joint_loss(*args)]
+    _reset_counts()
+    got = [float(v) for v in rrm.compute_joint_loss(*(t.cuda() for t in args))]
+    torch.cuda.synchronize()
+    counts["joint_loss"] = _counts()
+    rel = [abs(a - r) / abs(r) for a, r in zip(got, ref)]
+    log(f"phase 13 rrm.compute_joint_loss (4, 448, 448): card (ce, dloss) {got}, CPU {ref}, "
+        f"relative gaps {[f'{x:.2e}' for x in rel]}, launches {counts['joint_loss']}")
+    if counts["joint_loss"] != _want(rff_phi=1) or not max(rel) <= 1e-3:
+        raise AssertionError(f"phase 13 joint loss: {counts['joint_loss']}, gaps {rel}")
+
+    teacher = build_model(cfg, "cuda").eval()
+    wimg = normalize(torch.from_numpy(batch["wimg"]).cuda(), dtype=torch.bfloat16)
+    fuse = {}
+    with torch.no_grad():
+        for tag, fn in (
+                ("live", lambda: multi_scale_camseg(teacher, wimg, cfg.pseudo_scales)),
+                ("live_bf16", lambda: multi_scale_camseg(teacher, wimg, cfg.pseudo_scales,
+                                                         cam_dtype=torch.bfloat16)),
+                ("v2", lambda: multi_scale_camseg_v2(teacher, wimg, cfg.pseudo_scales,
+                                                     cam_fuse=("max", "sum"),
+                                                     seg_fuse=("sum", "sum")))):
+            _reset_counts()
+            fuse[tag] = fn()
+            torch.cuda.synchronize()
+            counts[f"tta_{tag}"] = _counts()
+
+    def gaps(tag):  # cam, cam_aux: max abs on [0, 1]; seg: of its range
+        g = [float((a.float() - r.float()).abs().max()) for a, r in zip(fuse["v2"], fuse[tag])]
+        return g[0], g[1], g[2] / float(fuse[tag][2].abs().max())
+
+    g, g16 = gaps("live"), gaps("live_bf16")
+    log(f"phase 13 multi_scale_camseg_v2 vs the live fuse on the bf16 ViT-B teacher: max gap "
+        f"cam {g[0]:.3e}, cam_aux {g[1]:.3e}, seg {g[2]:.3e} of its range (bound {V2_GAP}); "
+        f"against the step's bf16 CAM fuse: cam {g16[0]:.3e}, cam_aux {g16[1]:.3e}, seg "
+        f"{g16[2]:.3e}; launches {json.dumps({t: counts[f'tta_{t}'] for t in fuse})}")
+    want = _want(flash_fwd=12 * len(cfg.pseudo_scales))
+    if any(counts[f"tta_{t}"] != want for t in fuse):
+        raise AssertionError(f"phase 13 TTA launches {counts}")
+    if not max(g) <= V2_GAP:
+        raise AssertionError(f"phase 13 v2 vs live: gaps {g}")
+
+
+def phase_int8_optim_legacy(smi: str, sec_iter: float, convention: float):
+    """Phase 13: the int8 teacher, the three other optimizers and the legacy
+    surface at the main path's width. Returns the int8 and optimizer runs'
+    launch counts and the legacy calls'."""
+    import torch
+
+    from cosa_tpu_torch.cli import microbench_int8
+
+    dense = _int8_dense_vs_cpu()
+    if not max(u for u, _ in dense.values()) <= INT8_ULPS:
+        raise AssertionError(f"phase 13 int8 dense card vs CPU: {dense}")
+    rows = microbench_int8.run()
+    torch.cuda.synchronize()
+    for r in rows:
+        if not (math.isfinite(r["ms"]) and r["ms"] > 0):
+            raise AssertionError(f"phase 13 microbench_int8: {r}")
+        log(f"  int8 microbench {r['case']} {r['path']}: {r['ms']:.4f} ms, "
+            f"{r['tflops']:.1f} T(FL)OP/s, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_ms'] / r['ms']:.3f} of it), on {smi}")
+    int8 = {}
+    _int8_runs(smi, sec_iter, int8)
+    cmp = _int8_vs_bf16_step(convention)
+    if not min(c for c, _ in cmp.values()) > INT8_CAM_COS:
+        raise AssertionError(f"phase 13 int8 vs bf16 teacher CAM cosine: {cmp}")
+    _optimizer_runs(smi, int8)
+    legacy = {}
+    _legacy_on_the_card(legacy)
+    log(f"phase 13 ok: int8 dense within {INT8_ULPS} ulp of the CPU "
+        f"({json.dumps({n: u for n, (u, _) in dense.items()})}), int8 teacher trains at "
+        f"min_size 512 and 0 with the default launches, CAM cosine > {INT8_CAM_COS} "
+        f"({json.dumps({t: round(c, 6) for t, (c, _) in cmp.items()})}), the three "
+        "optimizers log their schedules, the legacy calls on the card")
+    return int8, legacy
+
+
 def main() -> int:
     try:
         import torch
@@ -1689,7 +1982,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     phase_opt_in_ops(smi)
-    counts, convention = phase_main_path(smi)
+    counts, convention, sec_iter = phase_main_path(smi)
     phase_flash_vs_plain(convention)
     scoring, device_time = phase_scoring(smi)
     mb_counts = phase_microbench()
@@ -1698,12 +1991,14 @@ def main() -> int:
     pseudo = phase_pseudo_submission(smi, out, cfg)
     variants = phase_variants(smi, cfg.data_root)
     zoo = phase_zoo(smi, cfg.data_root)
+    int8, legacy = phase_int8_optim_legacy(smi, sec_iter, convention)
     for r in rows:
         # launches on the kernel's own path: training for K1-K3, the
         # microbenchmark for K4; the other paths' runs beside them
         r["launches"] = (mb_counts if r["name"].startswith("flash_fwd_") else counts)[r["name"]]
         for key, runs in (("scoring", scoring), ("optin", optin), ("pseudo", pseudo),
-                          ("variant", variants), ("zoo", zoo)):
+                          ("variant", variants), ("zoo", zoo), ("int8", int8),
+                          ("legacy", legacy)):
             r[f"{key}_launches"] = {tag: c[r["name"]] for tag, c in runs.items()}
         r["ok"] = True
     log(json.dumps({"kernels": rows}))

@@ -173,7 +173,8 @@ class Config:
     # an explicit choice, as it selects the einsum path in the JAX package,
     # never a fallback. On a CPU tensor both take the plain version.
     flash_attention: bool = True
-    # int8 teacher TTA is not ported (ROADMAP Queue 1 item 18); True raises.
+    # int8 projections in the no-grad teacher's TTA (models/quant.py), at
+    # the scales whose min(h', w') >= teacher_int8_min_size; ViT only
     teacher_int8: bool = False
     teacher_int8_min_size: int = 512
     dp: int = -1  # data-parallel size: the port drives one GPU (-1 or 1)
@@ -205,10 +206,8 @@ class Config:
         assert self.energy_filter in ("rff", "lattice", "exact")
         assert self.eval_split in ("val", "test"), self.eval_split
         assert self.crf_backend in ("device", "native", "jax")
-        if self.teacher_int8:
-            raise NotImplementedError(
-                "teacher_int8: the int8 teacher is ROADMAP Queue 1 item 18"
-            )
+        if self.teacher_int8 and self.model != "vit":
+            raise NotImplementedError("teacher_int8: the int8 teacher twin is ViT-only")
         if self.profile_dir:
             raise NotImplementedError(
                 "profile_dir: tracing belongs to the port's H100 bench, "

@@ -44,15 +44,17 @@ class CoSANetwork(nn.Module):
         self.classifier = nn.Conv2d(d, num_classes - 1, 1, bias=False)
         self.aux_classifier = nn.Conv2d(d, num_classes - 1, 1, bias=False)
 
-    def forward(self, x: torch.Tensor, detach: str = "none") -> Dict[str, torch.Tensor]:
-        """x: (B, H, W, 3) normalized image.
+    def forward(self, x: torch.Tensor, detach: str = "none",
+                quant: bool = False) -> Dict[str, torch.Tensor]:
+        """x: (B, H, W, 3) normalized image. ``quant``: the encoder's
+        projections take the dynamic int8 product (the int8 teacher).
 
         Returns cls, cls_aux (B, C-1); feat (B, h, w, D); seg (B, h, w, C);
         cam, cam_aux (B, h, w, C-1). seg/cam/cls are f32."""
         b, hh, ww, _ = x.shape
         p = self.encoder.cfg.patch_size
         gh, gw = hh // p, ww // p
-        _, tokens, aux_tokens = self.encoder(x)
+        _, tokens, aux_tokens = self.encoder(x, quant)
         d = tokens.shape[-1]
         fmap = tokens.reshape(b, gh, gw, d)
         fmap_aux = aux_tokens.reshape(b, gh, gw, d)

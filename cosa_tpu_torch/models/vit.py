@@ -27,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cosa_tpu_torch.kernels.attention import attention
+from cosa_tpu_torch.models.quant import int8_matmul
 from cosa_tpu_torch.ops.resize import resize_bicubic
 
 
@@ -65,8 +66,13 @@ BACKBONES = {
 }
 
 
-def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """``layer`` applied with its input, weight and bias cast to ``dtype``."""
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
+          quant: bool = False) -> torch.Tensor:
+    """``layer`` applied with its input, weight and bias cast to ``dtype``;
+    with ``quant``, the dynamic int8 product (models/quant.py) returning
+    ``dtype``."""
+    if quant:
+        return int8_matmul(x, layer, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -87,11 +93,11 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
         hd = x.shape[-1] // self.num_heads
-        qkv = dense(x, self.qkv, self.dtype)
+        qkv = dense(x, self.qkv, self.dtype, quant)
         o = attention(qkv, self.num_heads, hd ** -0.5, self.use_kernel)
-        return dense(o, self.proj, self.dtype)
+        return dense(o, self.proj, self.dtype, quant)
 
 
 class Mlp(nn.Module):
@@ -101,12 +107,12 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = dense(x, self.fc1, self.dtype)
+    def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        x = dense(x, self.fc1, self.dtype, quant)
         # exact erf GELU in f32 (torch's default); tanh GELU under bf16, as
         # the JAX package chose (its deviation is below bf16's step there)
         x = F.gelu(x, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
-        return dense(x, self.fc2, self.dtype)
+        return dense(x, self.fc2, self.dtype, quant)
 
 
 class Block(nn.Module):
@@ -119,9 +125,9 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(d, eps=cfg.ln_eps)
         self.mlp = Mlp(d, int(d * cfg.mlp_ratio), dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(layer_norm(x, self.norm1).to(self.dtype))
-        return x + self.mlp(layer_norm(x, self.norm2).to(self.dtype))
+    def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        x = x + self.attn(layer_norm(x, self.norm1).to(self.dtype), quant)
+        return x + self.mlp(layer_norm(x, self.norm2).to(self.dtype), quant)
 
 
 class PatchEmbed(nn.Module):
@@ -171,9 +177,12 @@ class VisionTransformer(nn.Module):
         )
         self.norm = nn.LayerNorm(d, eps=cfg.ln_eps)
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, quant: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """x: (B, H, W, 3) float. Returns (cls_token, tokens, aux_tokens)."""
+        """x: (B, H, W, 3) float. Returns (cls_token, tokens, aux_tokens).
+        ``quant``: the blocks' qkv, proj, fc1 and fc2 take the dynamic int8
+        product (the no-grad teacher's TTA only); the parameters are the
+        same."""
         c = self.cfg
         b, hh, ww, _ = x.shape
         gh, gw = hh // c.patch_size, ww // c.patch_size
@@ -193,7 +202,7 @@ class VisionTransformer(nn.Module):
         aux_idx = c.depth + self.aux_layer if self.aux_layer < 0 else self.aux_layer
         aux_tokens: Optional[torch.Tensor] = None
         for i, blk in enumerate(self.blocks):
-            tok = blk(tok)
+            tok = blk(tok, quant)
             if i == aux_idx:
                 aux_tokens = tok
         tok = layer_norm(tok, self.norm).to(self.dtype)

@@ -313,10 +313,14 @@ class SwinNetwork(nn.Module):
         self.aux_classifier = nn.Conv2d(d_aux, num_classes - 1, 1, bias=False)
 
     def forward(self, x: torch.Tensor, detach: str = "none", train: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                quant: bool = False) -> Dict[str, torch.Tensor]:
         """``train=True`` makes the backbone's stochastic depth live (the
         reference MMSWIN trains with drop_path 0.1-0.3), drawing from
-        ``generator``; the teacher and evaluation keep the default."""
+        ``generator``; the teacher and evaluation keep the default. The
+        int8 teacher is ViT-only: ``quant`` raises."""
+        if quant:
+            raise NotImplementedError("quant: the int8 teacher twin is ViT-only")
         outs, blocks = self.backbone(x, train, generator)
         fmap = outs[-1]
         seg = self.decoder(fmap)

@@ -2,7 +2,8 @@
 
 The library compiles with ``g++`` on first use into this package directory
 and binds through its plain C ABI. It backs the energy-convention
-calibration and the ``"native"`` CRF backend; a failed build raises, and
+calibration, the ``"native"`` CRF backend and the legacy mean-field
+wrappers (``data/imutils.py``); a failed build raises, and
 nothing falls back to the port's torch lattice in its place.
 """
 
@@ -86,3 +87,20 @@ def exact_gaussian_cpu(feats: np.ndarray, vals: np.ndarray) -> np.ndarray:
 def lattice_gaussian_cpu(feats: np.ndarray, vals: np.ndarray) -> np.ndarray:
     """(N, d) x (N, K) permutohedral transform on the host (OpenMP)."""
     return _call("cosa_lattice_gaussian", feats, vals)
+
+
+def lattice_gaussian_batch_cpu(feats: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """(B, N, d) x (B, N, K) batched permutohedral transform on the host,
+    OpenMP across the batch."""
+    lib = load_native()
+    feats = np.ascontiguousarray(feats, np.float32)
+    vals = np.ascontiguousarray(vals, np.float32)
+    b, n, d = feats.shape
+    k = vals.shape[2]
+    out = np.zeros_like(vals)
+    fp = ctypes.POINTER(ctypes.c_float)
+    lib.cosa_lattice_gaussian_batch(
+        feats.ctypes.data_as(fp), vals.ctypes.data_as(fp),
+        out.ctypes.data_as(fp), b, n, d, k,
+    )
+    return out

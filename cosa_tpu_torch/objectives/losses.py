@@ -2,12 +2,15 @@
 
   * multilabel soft-margin (torch's multilabel_soft_margin_loss, written
     with an exact softplus so it equals the JAX form);
+  * the per-pixel masked cross-entropy ``cross_entropy_ignore``;
   * fg/bg-separated masked cross-entropy ``seg_loss``
     (utils/seg_helper.py:800-813);
   * CAM losses v1/v2/v3 (utils/seg_helper.py:593-653).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +36,15 @@ def _per_pixel_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     idx = labels.to(torch.int64).clamp(0, logits.shape[-1] - 1)
     return -logp.gather(-1, idx[..., None])[..., 0]
+
+
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_index: int = 255) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel CE with an ignore mask. logits (B, H, W, C), labels
+    (B, H, W). Returns (the CE summed over valid pixels, their count)."""
+    valid = labels != ignore_index
+    nll = torch.where(valid, _per_pixel_nll(logits, labels), 0.0)
+    return nll.sum(), valid.sum()
 
 
 def seg_loss(

@@ -78,6 +78,17 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return x.index_select(h_axis, ih).index_select(h_axis + 1, iw)
 
 
+def resize(x: torch.Tensor, size: Tuple[int, int], method: str = "bilinear") -> torch.Tensor:
+    """NHWC resize by ``method``: "bilinear", "bicubic" or "nearest"."""
+    if method == "bilinear":
+        return resize_bilinear(x, size)
+    if method == "bicubic":
+        return resize_bicubic(x, size)
+    if method == "nearest":
+        return resize_nearest(x, size)
+    raise ValueError(method)
+
+
 @functools.lru_cache(maxsize=512)
 def _linear_matrix(in_size: int, out_size: int) -> np.ndarray:
     """(out, in) interpolation matrix of torch bilinear, align_corners=False

@@ -17,7 +17,7 @@ import dataclasses
 import torch
 
 from cosa_tpu_torch.models.network import CoSANetwork, build_model
-from cosa_tpu_torch.train.optimizer import PolyWarmupAdamW
+from cosa_tpu_torch.train.optimizer import GroupOptimizer
 
 
 @dataclasses.dataclass
@@ -37,7 +37,7 @@ class GMMState:
 class TrainState:
     student: CoSANetwork
     teacher: CoSANetwork
-    optimizer: PolyWarmupAdamW
+    optimizer: GroupOptimizer
     gmm: GMMState
     step: int = 0
 
@@ -79,7 +79,7 @@ def create_train_state(cfg, device=None) -> TrainState:
     return TrainState(
         student=student,
         teacher=teacher,
-        optimizer=PolyWarmupAdamW(cfg, student),
+        optimizer=GroupOptimizer(cfg, student),
         gmm=init_gmm_state(cfg, cfg.batch_size, next(student.parameters()).device),
     )
 

@@ -1,13 +1,14 @@
 """The co-training step (the JAX package's train/step.py::build_train_step,
 itself covering the reference's main.py:106-252):
 
-  teacher multi-scale TTA  (weak image, no grad)
+  teacher multi-scale TTA  (weak image, no grad; int8 projections at the
+                            large scales with ``teacher_int8``)
   GMM adaptive thresholds  (ring buffer + fixed-iteration EM, ``usegmm``)
   CAM -> pseudo mask       (batched cam2mask, main and aux heads; PAR
                             refinement with ``usepar``)
   seg -> CAM soft targets
   student forward/backward (strong image): cls, seg, cam and energy losses
-  PolyWarmupAdamW update
+  optimizer update         (PolyWarmupAdamW, or cfg.optimizer's)
   EMA teacher update       (f32, every parameter)
 
 Eager PyTorch updates the state in place: the step returns only its
@@ -127,11 +128,16 @@ def build_train_step(cfg) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dic
         h, w = simg.shape[1:3]
 
         # ---- teacher TTA pseudo labels (no grad) -----------------------
+        def teacher_fwd(x):
+            # int8 projections where the TTA batch's min(h', w') reaches
+            # teacher_int8_min_size (the 672 scale of the default 448 crop)
+            return state.teacher(x, quant=cfg.teacher_int8 and min(
+                x.shape[1], x.shape[2]) >= cfg.teacher_int8_min_size)
+
         with torch.no_grad():
             with record_function("teacher_tta"):
                 cam_ps, cam_aux_ps, seg_ps = multi_scale_camseg(
-                    state.teacher, wimg, cfg.pseudo_scales, cam_dtype=act_dtype
-                )
+                    teacher_fwd, wimg, cfg.pseudo_scales, cam_dtype=act_dtype)
             cam_src = (cam_ps + cam_aux_ps) / 2 if cfg.use_cammix else cam_ps
             valid_cam = cam_validation(cam_src, cls_label)
             valid_cam_aux = cam_validation(cam_aux_ps, cls_label)

@@ -14,7 +14,8 @@ against K1 (chip_smoke.py holds the same kernels at the main path's
 shapes). The opt-in path's torch ops on the card against the CPU: the
 permutohedral lattice's integer structure equal, its filter within 1e-5
 relative and bitwise repeatable; GMM thresholds and PAR within 1e-5; the
-zoo's swin_tiny_test forward within 1e-4."""
+zoo's swin_tiny_test forward within 1e-4. The int8 dense on the card equal
+to the CPU's bitwise, and refused outside torch._int_mm's shapes."""
 
 import math
 
@@ -379,3 +380,45 @@ def test_swin_tiny_forward_on_the_card_matches_the_cpu(gpu):
         out = build_model(cfg, gpu)(x.to(gpu))
     for k, v in ref.items():
         assert float((out[k].cpu() - v).abs().max()) <= 1e-4, k
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [(200, 768, 2304, torch.bfloat16),
+                                         (17, 3072, 768, torch.bfloat16),
+                                         (40, 64, 256, torch.float32)])
+def test_int8_matmul_on_the_card_equals_the_cpu(gpu, m, k, n, dtype):
+    """The int8 dense (models/quant.py) through torch._int_mm: the codes and
+    the int32 product are exact and the dequantize is the same IEEE
+    operations, so the card equals the CPU's plain path bitwise."""
+    from cosa_tpu_torch.models import quant
+
+    g = torch.Generator().manual_seed(m + k)
+    x = (torch.randn((2, m, k), generator=g) * 3).to(dtype)
+    lin = torch.nn.Linear(k, n).requires_grad_(False)
+    with torch.no_grad():
+        lin.weight.normal_(0.0, k ** -0.5, generator=g)
+        lin.bias.normal_(0.0, 0.1, generator=g)
+    ref = quant.int8_matmul(x, lin, dtype)
+    before = quant.LAUNCHES["int8_mm"]
+    out = quant.int8_matmul(x.to(gpu), lin.to(gpu), dtype)
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES["int8_mm"] == before + 1
+    assert out.dtype == dtype
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_int8_product_outside_the_int_mm_limits_raises(gpu):
+    """cuBLASLt's int8 product takes more than 16 rows and K, N multiples of
+    8: a CUDA call outside those raises with its shape; nothing falls back
+    to a float product."""
+    from cosa_tpu_torch.models import quant
+
+    a = torch.ones((16, 64), dtype=torch.int8, device=gpu)
+    b = torch.ones((64, 32), dtype=torch.int8, device=gpu)
+    with pytest.raises(ValueError, match=r"\(16, 64\)"):
+        quant.int_mm(a, b)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int_mm(torch.ones((32, 60), dtype=torch.int8, device=gpu),
+                     torch.ones((60, 32), dtype=torch.int8, device=gpu))
+    lin = torch.nn.Linear(64, 36).to(gpu).requires_grad_(False)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_matmul(torch.ones((2, 20, 64), device=gpu), lin, torch.float32)

@@ -62,12 +62,12 @@ def test_train_without_device_needs_a_gpu(tmp_path):
         train(_tiny(work_dir=str(tmp_path)))
 
 
-def test_unported_options_raise_up_front(tmp_path):
-    for kw in (dict(teacher_int8=True), dict(profile_dir="p"), dict(tp=2)):
+def test_unported_options_raise_up_front():
+    for kw in (dict(profile_dir="p"), dict(tp=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _tiny(**kw)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        train(_tiny(work_dir=str(tmp_path), optimizer="poly_sgd"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ViT-only"):
+        _tiny(model="swinend2end", backbone="swin_tiny_test", teacher_int8=True)
     with pytest.raises(NotImplementedError, match="item 14"):
         evaluate(_tiny(), None, None, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="native"):

@@ -17,6 +17,8 @@ holds only the first update, lr-sized (6e-11 here), whose sign is
 arbitrary where the gradient is rounding noise (the key bias has a zero
 true gradient). The logged lr is equal."""
 
+import dataclasses
+
 import numpy as np
 import optax
 import pytest
@@ -33,7 +35,7 @@ from cosa_tpu.train.state import TrainState as JaxTrainState
 from cosa_tpu.train.state import init_gmm_state
 from cosa_tpu_torch.config import preset_config as torch_preset
 from cosa_tpu_torch.models.convert import state_dict_from_jax
-from cosa_tpu_torch.train.optimizer import PolyWarmupAdamW, param_label
+from cosa_tpu_torch.train.optimizer import GroupOptimizer, param_label
 from cosa_tpu_torch.train.state import create_train_state
 from cosa_tpu_torch.train.step import build_train_step
 
@@ -97,6 +99,13 @@ def _assert_params(module, jax_params, what):
                          ids=["exact", "rff", "lattice", "rff-gmm-par", "rff-maskformer",
                               "rff-distilled", "rff-swin", "rff-swin-cammix"])
 def test_train_step_matches_jax(kind, extra):
+    check_step_against_jax(kind, extra)
+
+
+def check_step_against_jax(kind, extra):
+    """One step of the port against the JAX package's from the same state
+    and batch (this module's docstring); tests/test_torch_int8.py runs it
+    with the int8 teacher."""
     from cosa_tpu.objectives.energy import build_energy_lattice as jax_lattice
 
     batch = _batch()
@@ -171,6 +180,12 @@ def test_optimizer_groups_match_optax():
 
 
 def test_optimizer_rejects_unported_kinds():
-    cfg = torch_preset("synthetic", backbone="vit_tiny_test", optimizer="poly_sgd")
-    with pytest.raises(NotImplementedError):
-        PolyWarmupAdamW(cfg, torch.nn.Linear(2, 2))
+    """Every kind the JAX package knows is ported (tests/test_torch_optim.py
+    holds them); any other kind is refused by the config and by the
+    optimizer itself."""
+    with pytest.raises(AssertionError):
+        torch_preset("synthetic", backbone="vit_tiny_test", optimizer="adam")
+    cfg = dataclasses.replace(torch_preset("synthetic", backbone="vit_tiny_test"),
+                              optimizer="adam")
+    with pytest.raises(ValueError, match="adam"):
+        GroupOptimizer(cfg, torch.nn.Linear(2, 2))
