@@ -80,6 +80,16 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      1e-3 of the CPU) and multi_scale_camseg_v2 on the bf16 ViT-B teacher
      (K1 at every scale, within 1e-5 of the live fuse in f32, the step's
      bf16 CAM fuse read beside it);
+ 14. multi-process runs of the main path (cosa_tpu_torch/parallel/): dp = 2
+     and tp = 2 over gloo with both ranks on the one card, through
+     train.loop.train (validation, checkpoint, a resumed step), each
+     against one process at the same global batches (losses, the
+     student's update and first moments, the validation, exact launches
+     per rank); K1 at
+     tp = 2's local head count against its plain version; the gloo
+     all-reduce of the student's gradient on the card; NCCL at world size
+     1 through torch.distributed.run and cli/train.py; dp = 2 over NCCL
+     where there are two cards; sec/iter of each beside phase 4's;
 then print the kernels' JSON line, the card's name and power limit, and
 the device JSON line last.
 
@@ -96,6 +106,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1028,8 +1039,8 @@ def phase_optin(smi: str):
 
     def thresholds(into):  # each step's (low, high) as the step logs them
         def wrap(build):
-            def build_step(c):
-                step = build(c)
+            def build_step(c, mesh):
+                step = build(c, mesh)
 
                 def fn(state, batch):
                     m = step(state, batch)
@@ -1964,6 +1975,333 @@ def phase_int8_optim_legacy(smi: str, sec_iter: float, convention: float):
     return int8, legacy
 
 
+# phase 14: val images per validation, the bounds on the dp / tp runs'
+# parameter updates and first moments against one process's in norm, the
+# validations' bounds, and the tensor-parallel K1 shapes (ViT-B's 12 heads
+# over 2 model ranks: 6 per rank)
+P14_VAL = 4
+# AdamW's first updates move each element by about lr whatever its
+# gradient's size, so where a gradient is rounding noise two runs that
+# round differently disagree by up to 2 lr; tp's row-parallel bf16 partial
+# sums round more of them apart than dp's batch split does. The first
+# moments after 2 steps (0.09 g1 + 0.1 g2, whatever the lr) are the
+# gradients themselves. Each bound lies between a sound run's reading and
+# a broken one's on an H100 80GB HBM3 at 700 W: update dp 6.7e-3 / tp
+# 0.184, moments dp 2.7e-3 / tp 0.058; with no data-group gradient average
+# the dp update 0.734 and moments 0.453, with copy-to-tp's backward
+# all-reduce left out the tp update 0.682 and moments 0.591
+P14_UPDATE_REL = {"dp2": 0.05, "tp2": 0.3}
+P14_MOMENT_REL = {"dp2": 0.05, "tp2": 0.2}
+# the bound on a validation's mIoU against a one-process evaluate of the
+# same weights: dp's ranks run each image's arithmetic unchanged (equal
+# scores expected); tp's row-parallel products round each rank's bf16
+# partial sum once more than the one-process product, which flips the
+# pixels that sit at a threshold or an argmax tie (a CPU rehearsal at
+# vit_small / crop 64 read a 5.9e-3 gap)
+P14_MIOU = {"dp2": 1e-4, "tp2": 2e-2}
+P14_K1 = ((48, 785), (48, 197), (48, 1765), (24, 785))
+
+
+def _p14_batches(cfg, dp: int, steps: int):
+    """The global batches of a run of ``cfg`` over ``dp`` data ranks: each
+    rank's loader shard, its rows side by side in rank order."""
+    import numpy as np
+
+    from cosa_tpu_torch.data.loader import build_train_loader
+
+    loaders = [build_train_loader(cfg, cfg.batch_size, process_index=r, process_count=dp)
+               for r in range(dp)]
+    try:
+        per = [[next(ld) for _ in range(steps)] for ld in loaders]
+    finally:
+        for ld in loaders:
+            ld.close()
+    return [{k: np.concatenate([p[i][k] for p in per]) for k in per[0][i]}
+            for i in range(steps)]
+
+
+def _p14_moments(state):
+    """The student's AdamW first moments, flat in parameter order (zero
+    where the optimizer holds none)."""
+    import torch
+
+    st = state.optimizer.opt.state
+    return torch.cat([st[p]["exp_avg"].reshape(-1) if "exp_avg" in st.get(p, {})
+                      else torch.zeros(p.numel(), device=p.device)
+                      for p in state.student.parameters()])
+
+
+def _p14_reference(cfg, batches, resume=None):
+    """One process at the global batch, from the seeded init or from the
+    checkpoint ``resume``: the losses of each step, the student's
+    parameters before the first step and after the second, and its first
+    moments after the second."""
+    import torch
+
+    from cosa_tpu_torch.train import checkpoint as ckpt
+    from cosa_tpu_torch.train.loop import LOSS_KEYS, to_device
+    from cosa_tpu_torch.train.state import create_train_state
+    from cosa_tpu_torch.train.step import build_train_step
+
+    state = create_train_state(cfg, "cuda")
+    if resume:
+        ckpt.restore_state(resume, state)
+    p0 = torch.cat([p.detach().reshape(-1) for p in state.student.parameters()])
+    step = build_train_step(cfg)
+    losses, p2, m2 = [], None, None
+    for i, b in enumerate(batches):
+        m = step(state, to_device(b, torch.device("cuda")))
+        losses.append({k: float(m[k]) for k in LOSS_KEYS})
+        if i == 1:
+            p2 = torch.cat([p.detach().reshape(-1) for p in state.student.parameters()])
+            m2 = _p14_moments(state)
+    return losses, p0, p2, m2
+
+
+def _p14_compare(tag, runs, ref_losses, first_iter, want):
+    """Each rank's run (``runs``, in rank order): its logged losses against
+    the one-process losses (5e-3 relative, phase 5's bound) and equal to
+    rank 0's, its launches equal to ``want``. Returns the largest gap."""
+    from cosa_tpu_torch.train.loop import LOSS_KEYS
+
+    gap = 0.0
+    for rank, run in enumerate(runs):
+        if run["launches"] != want:
+            raise AssertionError(f"phase 14 {tag} rank {rank}: launches {run['launches']} "
+                                 f"!= {want}")
+        recs = run["records"]
+        if [r["iter"] for r in recs] != list(range(first_iter, first_iter + len(recs))):
+            raise AssertionError(f"phase 14 {tag}: steps {[r['iter'] for r in recs]}")
+        for r, r0 in zip(recs, runs[0]["records"]):
+            ref = ref_losses[r["iter"] - 1]
+            for k in LOSS_KEYS:
+                if not abs(r[k] - ref[k]) <= 5e-3 * abs(ref[k]) or r[k] != r0[k]:
+                    raise AssertionError(f"phase 14 {tag} rank {rank} step {r['iter']} {k}: "
+                                         f"{r[k]} vs one process {ref[k]}, rank 0 {r0[k]}")
+                gap = max(gap, abs(r[k] - ref[k]) / abs(ref[k]) if ref[k] else 0.0)
+    return gap
+
+
+def _p14_checkpoint(tag, cfg, path, p0, p2, m2, results):
+    """The run's step-2 checkpoint read by one process: its student's update
+    and first moments against the one-process run's in norm, and its
+    student and teacher scored by a one-process evaluate against the run's
+    own validation (every mIoU within ``P14_MIOU[tag]``; whether every
+    score is equal is printed)."""
+    import numpy as np
+    import torch
+
+    from cosa_tpu_torch.data.loader import build_val_dataset
+    from cosa_tpu_torch.eval.engine import evaluate, score_names
+    from cosa_tpu_torch.train import checkpoint as ckpt
+    from cosa_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, "cuda")
+    ckpt.restore_state(path, state)
+    pk = torch.cat([p.detach().reshape(-1) for p in state.student.parameters()])
+    rel = float(torch.linalg.vector_norm((pk - p0) - (p2 - p0))
+                / torch.linalg.vector_norm(p2 - p0))
+    rel_m = float(torch.linalg.vector_norm(_p14_moments(state) - m2)
+                  / torch.linalg.vector_norm(m2))
+    log(f"phase 14 {tag}: the student's update {rel:.4e} and first moments {rel_m:.4e} "
+        "off one process's in norm")
+    if not (rel < P14_UPDATE_REL[tag] and rel_m < P14_MOMENT_REL[tag]):
+        raise AssertionError(f"phase 14 {tag}: update {rel:.3e} (bound {P14_UPDATE_REL[tag]}), "
+                             f"first moments {rel_m:.3e} (bound {P14_MOMENT_REL[tag]})")
+    val = build_val_dataset(cfg)
+    worst, equal = 0.0, True
+    for who in ("student", "teacher"):
+        ref = evaluate(cfg, getattr(state, who), val, max_images=cfg.fasteval_n,
+                       threshold_filters=cfg.eval_threshold_filters, device="cuda")
+        got = results[who]
+        for k in score_names(ref):
+            try:
+                np.testing.assert_equal(got[k], ref[k])
+            except AssertionError:
+                equal = False
+            worst = max(worst, abs(got[k]["miou"] - ref[k]["miou"]))
+        if got["cls_aps"] != ref["cls_aps"]:
+            equal = False
+    if worst > P14_MIOU[tag]:
+        raise AssertionError(f"phase 14 {tag}: validation vs one-process evaluate: equal "
+                             f"{equal}, largest mIoU gap {worst}")
+    del state
+    torch.cuda.empty_cache()
+    return rel, rel_m, equal, worst
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(smi: str, sec_iter: float, convention: float):
+    """Phase 14, multi-process runs of the main path (ViT-B/16 + LargeFOV,
+    crop 448, bf16, RFF energy, validations of 4 images at eval_batch 1):
+    (a) dp = 2 on the one card over gloo, batch 2 per rank, through
+    train.loop.train: 2 steps with a validation and a checkpoint at step
+    2, then a run resumed from it for step 3; (b) tp = 2 on the one card
+    over gloo, batch 4, 2 steps and a validation; each against one process
+    at the same global batches (losses within 5e-3 relative, step 3 from
+    the same checkpoint; the student's update and first moments in norm;
+    the run's validation against a one-process evaluate of its step-2
+    checkpoint; exact launches per rank), and K1 at tp=2's local head
+    count against its plain version; (c) NCCL at world size 1
+    through torch.distributed.run and the training CLI; (d) dp = 2 over
+    NCCL, one card per rank, where there are two cards. Also the gloo
+    all-reduce of the student's gradient on the card, timed alone.
+    Returns rank 0's launches of each leg."""
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from cosa_tpu_torch.kernels import flash
+    from cosa_tpu_torch.parallel.launch import allreduce_worker, spawn, train_worker
+    from cosa_tpu_torch.train.loop import output_dir
+
+    def cfg_of(**kw):
+        return _main_cfg(max_iters=2, eval_iters=2, fasteval=True, fasteval_n=P14_VAL,
+                         eval_batch=1, energy_convention=convention, checkpoint_keep=2,
+                         **kw)
+
+    ref_cfg = cfg_of(name="p14_ref")
+    per_val = 12 * len(ref_cfg.eval_scales)  # K1 per image per model
+
+    def want(steps, images):
+        return dict(flash_fwd=48 * steps + 2 * images * per_val, flash_bwd=12 * steps,
+                    rff_phi=steps)
+
+    launches, secs = {}, {}
+
+    # (a) dp = 2 over gloo on one card
+    cfg_a = cfg_of(name="p14_dp2", batch_size=2, dp=2)
+    ck_a = os.path.join(output_dir(cfg_a), "ckpt", "step_00000002.pt")
+    cfg_a2 = cfg_a.replace(name="p14_dp2_resumed", max_iters=3, resume=ck_a)
+    for c in (cfg_a, cfg_a2):
+        shutil.rmtree(output_dir(c), ignore_errors=True)
+    t0 = time.time()
+    outs = spawn(train_worker, 2, [cfg_a, cfg_a2], "cuda:0")
+    wall_a = time.time() - t0
+    batches = _p14_batches(cfg_a, 2, 3)
+    ref_losses, p0, p2, m2 = _p14_reference(ref_cfg, batches[:2])
+    # step 3 from the run's own step-2 checkpoint: two runs that start
+    # apart by rounding drift further apart at a real lr
+    ref_losses += _p14_reference(ref_cfg, batches[2:], resume=ck_a)[0]
+    n_params = p0.numel()
+    local = P14_VAL // 2  # each data rank's validation images
+    gap = max(_p14_compare("dp2", [o[0] for o in outs], ref_losses, 1, _want(**want(2, local))),
+              _p14_compare("dp2 resumed", [o[1] for o in outs], ref_losses, 3,
+                           _want(**want(1, 0))))
+    rel_a, mom_a, eq_a, worst_a = _p14_checkpoint("dp2", ref_cfg, ck_a, p0, p2, m2,
+                                                  outs[0][0]["results"])
+    launches["dp2"] = {k: outs[0][0]["launches"][k] + outs[0][1]["launches"][k]
+                       for k in outs[0][0]["launches"]}
+    secs["dp2"] = statistics.median([outs[0][0]["records"][1]["itertime"],
+                                     outs[0][1]["records"][0]["itertime"]])
+    log(f"phase 14 (a) dp=2 gloo, one card: losses within {gap:.3e} of one process at the "
+        f"global batch 4 over steps 1-2 and, resumed at 2, step 3, student update {rel_a:.3e} "
+        f"and first moments {mom_a:.3e} off in norm, validation equal to one process's: "
+        f"{eq_a} (largest mIoU gap {worst_a}), launches per rank exact; {wall_a:.1f} s for "
+        "both runs")
+    del p0, p2, m2
+
+    # (b) tp = 2 over gloo on one card
+    cfg_b = cfg_of(name="p14_tp2", batch_size=4, tp=2)
+    shutil.rmtree(output_dir(cfg_b), ignore_errors=True)
+    t0 = time.time()
+    outs_b = spawn(train_worker, 2, [cfg_b], "cuda:0")
+    wall_b = time.time() - t0
+    ref_losses, p0, p2, m2 = _p14_reference(ref_cfg, _p14_batches(cfg_b, 1, 2))
+    gap_b = _p14_compare("tp2", [o[0] for o in outs_b], ref_losses, 1,
+                         _want(**want(2, P14_VAL)))
+    rel_b, mom_b, eq_b, worst_b = _p14_checkpoint(
+        "tp2", ref_cfg, os.path.join(output_dir(cfg_b), "ckpt", "step_00000002.pt"),
+        p0, p2, m2, outs_b[0][0]["results"])
+    launches["tp2"] = outs_b[0][0]["launches"]
+    secs["tp2"] = outs_b[0][0]["records"][1]["itertime"]
+    del p0, p2, m2
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    scale = 64 ** -0.5
+    k1 = []
+    for bh, n in P14_K1:
+        qkv = _qkv(bh // 6, n, 6, gen)
+        q, k, v = _split(qkv, 6)
+        ref = flash.plain_attention(q, k, v, scale).reshape(bh // 6, n, 6 * 64)
+        o, _ = flash.attn_fwd(qkv, 6, scale)
+        torch.cuda.synchronize()
+        err = float((o.float() - ref).abs().max())
+        ms = time_ms(lambda: flash.attn_fwd(qkv, 6, scale))
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        plain = time_ms(lambda: flash.plain_attention(qb, kb, vb, scale))
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (qb, kb, vb))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+        bms, by = bound_ms(4.0 * bh * n * 64 * 2 + bh * n * 4, 4.0 * bh * n * n * 64, PEAK_BF16)
+        k1.append(f"({bh}, {n}) err {err:.3e} {ms:.4f} ms (plain {plain:.4f}, sdpa "
+                  f"{lib:.4f}, bound {bms:.4f} by {by})")
+        if not err < 5e-3:
+            raise AssertionError(f"phase 14 K1 at tp=2 (B*H={bh}, N={n}): {err}")
+        del qkv, q, k, v, ref, o, qb, kb, vb, qh, kh, vh
+    log(f"phase 14 (b) tp=2 gloo, one card: losses within {gap_b:.3e} of one process, "
+        f"student update {rel_b:.3e} and first moments {mom_b:.3e} off in norm, validation within {worst_b} mIoU of one "
+        f"process's (equal: {eq_b}), launches per rank exact; {wall_b:.1f} s; K1 at 6 "
+        f"local heads vs plain: {'; '.join(k1)}")
+
+    # the gradient all-reduce over gloo on the card, alone
+    ar = spawn(allreduce_worker, 2, n_params, "cuda:0")[0]
+    log(f"phase 14 gloo all-reduce of the student's {n_params} f32 on cuda:0, 2 ranks on "
+        f"one card (staged through the host): {ar['ms']:.1f} ms on {smi}")
+
+    # (c) NCCL at world size 1 through torch.distributed.run and the CLI
+    cfg_c = _main_cfg(name="p14_nccl1", max_iters=2)
+    shutil.rmtree(output_dir(cfg_c), ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
+           f"--master_port={_free_port()}", "-m", "cosa_tpu_torch.cli.train", cfg_c.name,
+           "--dataset", "synthetic", "--backbone", cfg_c.backbone, "--crop_size",
+           str(cfg_c.crop_size), "--batch_size", str(cfg_c.batch_size), "--max_iters", "2",
+           "--eval_iters", str(10 ** 9), "--log_iters", "1", "--warmup_iters", "2",
+           "--lr_warmup_iters", "2", "--finalval", "false", "--pretrained", "false",
+           "--energy_convention", repr(convention), "--work_dir", cfg_c.work_dir]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    wall_c = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 14 (c) torchrun exit {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(output_dir(cfg_c), "metrics.jsonl")) as f:
+        recs_c = [r for r in map(json.loads, f) if r["kind"] == "train"]
+    with open(os.path.join(output_dir(cfg_c), "print.out")) as f:
+        printed = f.read()
+    if [r["iter"] for r in recs_c] != [1, 2] or "(1 processes)" not in printed:
+        raise AssertionError(f"phase 14 (c): records {recs_c}, print.out {printed[-500:]}")
+    secs["nccl1"] = recs_c[1]["itertime"]
+    log(f"phase 14 (c) NCCL world 1 via torch.distributed.run + cli.train: 2 steps logged "
+        f"by rank 0, {wall_c:.1f} s for the command")
+
+    # (d) NCCL across cards
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cfg_d = cfg_of(name="p14_nccl_dp2", batch_size=2, dp=2)
+        shutil.rmtree(output_dir(cfg_d), ignore_errors=True)
+        outs_d = spawn(train_worker, 2, [cfg_d], None, backend="nccl")
+        ref_d = _p14_reference(ref_cfg, _p14_batches(cfg_d, 2, 2))[0]
+        gap_d = _p14_compare("nccl dp2", [o[0] for o in outs_d], ref_d, 1,
+                             _want(**want(2, local)))
+        launches["nccl_dp2"] = outs_d[0][0]["launches"]
+        secs["nccl_dp2"] = outs_d[0][0]["records"][1]["itertime"]
+        log(f"phase 14 (d) dp=2 over NCCL on 2 cards: losses within {gap_d:.3e} of one "
+            "process, launches per rank exact")
+    else:
+        log(f"phase 14 (d) NCCL across cards did not run: torch.cuda.device_count() = "
+            f"{n_cards}, it needs 2")
+    log(f"phase 14 ok: sec/iter {json.dumps({k: round(v, 4) for k, v in secs.items()})} "
+        f"beside phase 4's {sec_iter:.4f} (one process, batch 4) on {smi}; a step of "
+        f"global batch 4 in each")
+    return launches
+
 def main() -> int:
     try:
         import torch
@@ -1992,13 +2330,14 @@ def main() -> int:
     variants = phase_variants(smi, cfg.data_root)
     zoo = phase_zoo(smi, cfg.data_root)
     int8, legacy = phase_int8_optim_legacy(smi, sec_iter, convention)
+    parallel = phase_parallel(smi, sec_iter, convention)
     for r in rows:
         # launches on the kernel's own path: training for K1-K3, the
         # microbenchmark for K4; the other paths' runs beside them
         r["launches"] = (mb_counts if r["name"].startswith("flash_fwd_") else counts)[r["name"]]
         for key, runs in (("scoring", scoring), ("optin", optin), ("pseudo", pseudo),
                           ("variant", variants), ("zoo", zoo), ("int8", int8),
-                          ("legacy", legacy)):
+                          ("legacy", legacy), ("parallel", parallel)):
             r[f"{key}_launches"] = {tag: c[r["name"]] for tag, c in runs.items()}
         r["ok"] = True
     log(json.dumps({"kernels": rows}))

@@ -177,8 +177,10 @@ class Config:
     # the scales whose min(h', w') >= teacher_int8_min_size; ViT only
     teacher_int8: bool = False
     teacher_int8_min_size: int = 512
-    dp: int = -1  # data-parallel size: the port drives one GPU (-1 or 1)
-    tp: int = 1  # tensor-parallel size: 1 only (ROADMAP Queue 1 item 14)
+    # the (data, model) layout of a multi-process run (parallel/mesh.py):
+    # dp = -1 takes every rank tp leaves; batch_size is per data rank
+    dp: int = -1
+    tp: int = 1
     # buffer donation is a jit notion; eager PyTorch frees what it no longer
     # references, so the flag has no meaning here and is kept for CLI parity
     donate: bool = True
@@ -186,7 +188,7 @@ class Config:
     # a checkpoint file, or a checkpoint directory (its newest step), to
     # continue training from (train/checkpoint.py)
     resume: str = ""
-    profile_dir: str = ""  # not ported (ROADMAP Queue 1 item 10); set raises
+    profile_dir: str = ""  # rank 0's torch.profiler chrome trace goes here
 
     # ---- derived ---------------------------------------------------------
     def validate(self) -> "Config":
@@ -208,16 +210,6 @@ class Config:
         assert self.crf_backend in ("device", "native", "jax")
         if self.teacher_int8 and self.model != "vit":
             raise NotImplementedError("teacher_int8: the int8 teacher twin is ViT-only")
-        if self.profile_dir:
-            raise NotImplementedError(
-                "profile_dir: tracing belongs to the port's H100 bench, "
-                "ROADMAP Queue 1 item 10, a benchmark PR's work"
-            )
-        if self.dp not in (-1, 1) or self.tp != 1:
-            raise NotImplementedError(
-                "dp/tp: the port drives one GPU; multi-GPU is ROADMAP Queue 1 "
-                "item 14"
-            )
         return self
 
     def replace(self, **kw: Any) -> "Config":

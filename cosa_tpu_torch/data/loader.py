@@ -195,12 +195,18 @@ class TrainLoader:
 
 
 def build_train_loader(cfg, per_process_batch: int, num_workers: Optional[int] = None,
-                       skip_batches: int = 0):
+                       skip_batches: int = 0, process_index: int = 0,
+                       process_count: int = 1):
+    """The loader of data rank ``process_index`` of ``process_count``: its
+    contiguous shard of each epoch's order, so global batch row
+    ``r * per_process_batch + i`` is rank r's row i."""
     ds = build_train_dataset(cfg)
     return TrainLoader(
         ds,
         batch_size=per_process_batch,
         seed=cfg.seed,
         num_workers=cfg.num_workers if num_workers is None else num_workers,
+        process_index=process_index,
+        process_count=process_count,
         skip_batches=skip_batches,
     )

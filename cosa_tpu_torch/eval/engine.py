@@ -20,8 +20,15 @@ reference's evaluation_engine.py:11-297), for one GPU:
     the end; the classification mAP per image.
 
 The static-shape interpolation matrices and the single packed transfer of
-the JAX package are TPU devices that a GPU does not need. Multi-GPU
-evaluation (``mesh``) is ROADMAP Queue 1 item 14.
+the JAX package are TPU devices that a GPU does not need.
+
+Under a ``mesh`` (``parallel/mesh.py``) data rank r scores ``idxs[r::dp]``
+(the JAX package's per-process shard, engine.py:278-279) and the ranks of
+one model group score the same images in lockstep; the confusion matrices
+are summed over the data group, and the per-image class APs gathered, so
+every rank returns what one process returns (the JAX package averages each
+process's own APs only). Files (``save_dir``, ``save_rawcam_dir``) are
+written by each data rank for its images, from model rank 0.
 
 :func:`_eval_batch` is the one batch path of scoring, of the evaluation
 visuals (``save_dir``, raw CAM dumps) and of the test-split submission
@@ -33,10 +40,11 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cosa_tpu_torch.data.datasets import class_list
 from cosa_tpu_torch.eval.crf import crf_labels_device, crf_refine_host
@@ -52,6 +60,8 @@ from cosa_tpu_torch.objectives.pseudo import (
 )
 from cosa_tpu_torch.ops.image import normalize
 from cosa_tpu_torch.ops.resize import resize_bilinear
+from cosa_tpu_torch.parallel.mesh import Mesh
+from cosa_tpu_torch.parallel.tensor import all_reduce_sum_
 from cosa_tpu_torch.utils.device import resolve_device
 from cosa_tpu_torch.utils.metrics import compute_mAP
 from cosa_tpu_torch.utils.visualize import dump_eval_visuals
@@ -110,19 +120,19 @@ def evaluate(
     (``utils/visualize.py::dump_eval_visuals``), ``save_rawcam_dir`` its
     CAMs of the present classes as a ``{class: map}`` ``.npy``."""
     require_cosa_interface(cfg)
-    if mesh is not None:
-        raise NotImplementedError("mesh: multi-GPU evaluation is ROADMAP Queue 1 item 14")
+    mesh = mesh or Mesh()
     dev = resolve_device(device)
     thresholds = tuple(threshold_filters or ())
     n = cfg.num_classes
     pad = 500 if cfg.dataset == "VOC12" else 640
-    idxs = eval_indices(len(val_ds), max_images)
+    all_idxs = eval_indices(len(val_ds), max_images)
+    idxs = all_idxs[mesh.dp_rank::mesh.dp]
+    writes = mesh.tp_rank == 0
     # the host CRF backends take one image's probabilities at a time
     bsz = 1 if getcrf and cfg.crf_backend != "device" else int(cfg.eval_batch)
     hists = torch.zeros((4 + 2 * len(thresholds) + int(getcrf), n, n),
                         dtype=torch.int64, device=dev)
-    aps: List[float] = []
-    aps_aux: List[float] = []
+    aps: List[Tuple[int, List[float], List[float]]] = []  # (image, APs, aux APs)
     crf_s = 0.0
     t0 = time.time()
     was_training = model.training
@@ -134,17 +144,24 @@ def evaluate(
                 h_b, probs, probs_aux, dt, maps = _eval_batch(
                     cfg, model, samples, pad, thresholds, getcrf, dev,
                     return_maps=bool(save_dir or save_rawcam_dir))
-                if maps is not None:
+                if maps is not None and writes:
                     _dump_maps(cfg, samples, maps, save_dir, save_rawcam_dir)
                 hists += h_b
                 crf_s += dt
-                for bi, smp in enumerate(samples):
+                for bi, (i, smp) in enumerate(zip(idxs[c0:c0 + bsz], samples)):
                     cl = smp["cls_label"]
                     if cl.sum() > 0:
-                        aps += compute_mAP(cl[None], probs[bi:bi + 1])
-                        aps_aux += compute_mAP(cl[None], probs_aux[bi:bi + 1])
+                        aps.append((i, compute_mAP(cl[None], probs[bi:bi + 1]),
+                                    compute_mAP(cl[None], probs_aux[bi:bi + 1])))
     finally:
         model.train(was_training)
+    all_reduce_sum_(hists, mesh.dp_group)
+    if mesh.dp_group is not None:
+        gathered = [None] * mesh.dp
+        dist.all_gather_object(gathered, aps, group=mesh.dp_group)
+        aps = sorted((r for part in gathered for r in part), key=lambda r: r[0])
+    aps_aux = [a for _, _, ap in aps for a in ap]
+    aps = [a for _, ap, _ in aps for a in ap]
     hist = hists.cpu().numpy()
     out = {
         "CAM": scores_from_hist(hist[0]),
@@ -159,7 +176,7 @@ def evaluate(
         out[f"camaux_{thre}"] = scores_from_hist(hist[5 + 2 * ti])
     if getcrf:
         out["Seg_crf"] = scores_from_hist(hist[-1])
-    out["time"] = dict(images=len(idxs), seconds=time.time() - t0, crf_seconds=crf_s)
+    out["time"] = dict(images=len(all_idxs), seconds=time.time() - t0, crf_seconds=crf_s)
     return out
 
 

@@ -24,32 +24,36 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from cosa_tpu_torch.parallel.tensor import all_reduce_max
+
 # torch._int_mm calls made for a CUDA tensor, counted where they are made
 LAUNCHES = {"int8_mm": 0}
 _INV127 = float(np.float32(1.0) / np.float32(127.0))
 
 
-def _quantize(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize(x: torch.Tensor, dim: int, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The max over ``dim`` times f32(1/127), the product XLA compiles the
     JAX package's ``/ 127`` into: one IEEE product on the CPU and the card
     alike (torch's CUDA division by a Python scalar is a product with its
-    reciprocal, its CPU division a true division)."""
+    reciprocal, its CPU division a true division). With ``group`` (a
+    tensor-parallel group that splits ``dim``) the max runs over every
+    rank's share, so the codes equal the unsplit tensor's."""
     xf = x.to(torch.float32)
-    s = xf.abs().amax(dim=dim, keepdim=True) * _INV127
+    s = all_reduce_max(xf.abs().amax(dim=dim, keepdim=True), group) * _INV127
     s = torch.clamp(s, min=1e-12)
     q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
     return q, s
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., K) float -> int8 rows and (..., 1) f32 scales (symmetric)."""
-    return _quantize(x, -1)
+    return _quantize(x, -1, group)
 
 
-def quantize_cols(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_cols(w: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """An ``nn.Linear`` weight (N, K) -> int8 (N, K) and (1, N) f32 scales,
     one per output channel (the max runs over K, the JAX kernel's axis 0)."""
-    q, s = _quantize(w, 1)
+    q, s = _quantize(w, 1, group)
     return q, s.reshape(1, -1)
 
 
@@ -79,15 +83,22 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)
 
 
+def int8_product(x: torch.Tensor, weight: torch.Tensor, group=None) -> torch.Tensor:
+    """(M, K) float times an ``nn.Linear`` weight (N, K) by the dynamic
+    int8 product: ``acc * xs * ws`` in f32, (M, N). With ``group``, K is
+    split over its ranks (a row-parallel layer): the scales' maxima run
+    over the whole K and the result is this rank's partial sum."""
+    xq, xs = quantize_rows(x, group)
+    wq, ws = quantize_cols(weight, group)
+    return int_mm(xq, wq.t()).to(torch.float32) * xs * ws
+
+
 def int8_matmul(x: torch.Tensor, layer: nn.Linear, out_dtype: torch.dtype) -> torch.Tensor:
     """``layer`` applied to ``x`` (..., K) by the dynamic int8 product: the
     weight quantized from its f32 parameter, then ``acc * xs * ws``, the
     bias added in f32, one cast to ``out_dtype``."""
     lead, k = x.shape[:-1], x.shape[-1]
-    xq, xs = quantize_rows(x.reshape(-1, k))
-    wq, ws = quantize_cols(layer.weight)
-    acc = int_mm(xq, wq.t())
-    out = acc.to(torch.float32) * xs * ws
+    out = int8_product(x.reshape(-1, k), layer.weight)
     if layer.bias is not None:
         out = out + layer.bias.to(torch.float32)
     return out.reshape(*lead, -1).to(out_dtype)

@@ -27,8 +27,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cosa_tpu_torch.kernels.attention import attention
-from cosa_tpu_torch.models.quant import int8_matmul
+from cosa_tpu_torch.models.quant import int8_matmul, int8_product
 from cosa_tpu_torch.ops.resize import resize_bicubic
+from cosa_tpu_torch.parallel.tensor import copy_to_tp, group_size, reduce_from_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +78,26 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+def row_dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
+              group=None, quant: bool = False) -> torch.Tensor:
+    """:func:`dense` of a row-parallel layer: this rank's input columns
+    ``x`` times its weight columns, summed over ``group`` in f32, the
+    replicated bias added once after the sum, one cast to ``dtype``. With
+    ``group`` None, plain :func:`dense`."""
+    if group is None:
+        return dense(x, layer, dtype, quant)
+    if quant:
+        lead = x.shape[:-1]
+        part = int8_product(x.reshape(-1, x.shape[-1]), layer.weight, group)
+        part = part.reshape(*lead, -1)
+    else:
+        part = F.linear(x.to(dtype), layer.weight.to(dtype)).to(torch.float32)
+    out = reduce_from_tp(part, group)
+    if layer.bias is not None:
+        out = out + layer.bias.to(torch.float32)
+    return out.to(dtype)
+
+
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm in f32, returning f32."""
     return F.layer_norm(x.to(torch.float32), norm.normalized_shape,
@@ -84,35 +105,51 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
 
 
 class Attention(nn.Module):
+    """Multi-head self-attention. Under tensor parallelism
+    (``parallel/mesh.py::shard_module_`` sets ``tp_group``) this rank holds
+    its heads' rows of q, k and v and their columns of proj."""
+
+    TP_LAYERS, TP_UNIT = ("qkv", "proj"), "heads"
+
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
                  dtype: torch.dtype, use_kernel: bool):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = self.tp_units = num_heads
         self.dtype = dtype
         self.use_kernel = use_kernel
+        self.tp_group = None
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        g = self.tp_group
         hd = x.shape[-1] // self.num_heads
-        qkv = dense(x, self.qkv, self.dtype, quant)
-        o = attention(qkv, self.num_heads, hd ** -0.5, self.use_kernel)
-        return dense(o, self.proj, self.dtype, quant)
+        qkv = dense(copy_to_tp(x, g), self.qkv, self.dtype, quant)
+        o = attention(qkv, self.num_heads // group_size(g), hd ** -0.5, self.use_kernel)
+        return row_dense(o, self.proj, self.dtype, g, quant)
 
 
 class Mlp(nn.Module):
+    """fc1, GELU, fc2; under tensor parallelism this rank holds its share
+    of the hidden width (fc1's rows, fc2's columns)."""
+
+    TP_LAYERS, TP_UNIT = ("fc1", "fc2"), "hidden channels"
+
     def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
+        self.tp_units = hidden
+        self.tp_group = None
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
-        x = dense(x, self.fc1, self.dtype, quant)
+        g = self.tp_group
+        x = dense(copy_to_tp(x, g), self.fc1, self.dtype, quant)
         # exact erf GELU in f32 (torch's default); tanh GELU under bf16, as
         # the JAX package chose (its deviation is below bf16's step there)
         x = F.gelu(x, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
-        return dense(x, self.fc2, self.dtype, quant)
+        return row_dense(x, self.fc2, self.dtype, g, quant)
 
 
 class Block(nn.Module):

@@ -37,7 +37,8 @@ import torch.nn.functional as F
 
 from cosa_tpu_torch.models.decoders import LargeFOV
 from cosa_tpu_torch.models.network import cosa_heads
-from cosa_tpu_torch.models.vit import dense, layer_norm
+from cosa_tpu_torch.models.vit import dense, layer_norm, row_dense
+from cosa_tpu_torch.parallel.tensor import copy_to_tp, group_rank, group_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +68,10 @@ SWIN_CONFIGS = {
     "swin_tiny_test": SwinConfig(embed_dim=16, depths=(1, 1, 1, 1),
                                  num_heads=(1, 2, 4, 8), window=4,
                                  drop_path_rate=0.0),
+    # every stage's heads split over 2 model ranks (the tensor-parallel tests)
+    "swin_tp_test": SwinConfig(embed_dim=16, depths=(1, 1, 1, 1),
+                               num_heads=(2, 2, 4, 8), window=4,
+                               drop_path_rate=0.0),
 }
 
 
@@ -122,6 +127,9 @@ class DropPath(nn.Module):
     def __init__(self, p: float):
         super().__init__()
         self.p = p
+        # (this rank's data index, data ranks): the draw covers the global
+        # batch and this rank keeps its rows (parallel/mesh.py::shard_module_)
+        self.rows = (0, 1)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -130,18 +138,27 @@ class DropPath(nn.Module):
         if self.p == 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.p
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        b, (r, n) = x.shape[0], self.rows
+        shape = (b * n,) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device)[r * b:(r + 1) * b] < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class WindowAttention(nn.Module):
+    """Window attention with a learned relative-position bias. Under tensor
+    parallelism (``tp_group`` set) this rank holds its heads' rows of q, k
+    and v and their columns of proj; the replicated bias table is read at
+    its heads' columns, and its gradient is summed over the group."""
+
+    TP_LAYERS, TP_UNIT = ("qkv", "proj"), "heads"
+
     def __init__(self, dim: int, num_heads: int, window: int, qkv_bias: bool,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = self.tp_units = num_heads
         self.window = window
         self.dtype = dtype
+        self.tp_group = None
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.rel_pos_bias = nn.Parameter(torch.zeros((2 * window - 1) ** 2, num_heads))
         self.proj = nn.Linear(dim, dim)
@@ -149,24 +166,33 @@ class WindowAttention(nn.Module):
     def forward(self, xw: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         """xw: (B*nW, w^2, C); mask: (nW, w^2, w^2) additive or None."""
         bn, n, c = xw.shape
-        h = self.num_heads
-        hd = c // h
-        qkv = dense(xw, self.qkv, self.dtype).reshape(bn, n, 3, h, hd)
+        g = self.tp_group
+        hd = c // self.num_heads
+        h = self.num_heads // group_size(g)
+        qkv = dense(copy_to_tp(xw, g), self.qkv, self.dtype).reshape(bn, n, 3, h, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         # the scores round to the compute dtype before the f32 bias and mask
         s = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k).float()
         idx = _device_const(_rel_pos_index, (self.window,), xw.device)
-        s = s + self.rel_pos_bias[idx].permute(2, 0, 1)[None]
+        table = copy_to_tp(self.rel_pos_bias, g)
+        if g is not None:
+            table = table[:, group_rank(g) * h:(group_rank(g) + 1) * h]
+        s = s + table[idx].permute(2, 0, 1)[None]
         if mask is not None:
             nw = mask.shape[0]
             s = s.reshape(bn // nw, nw, h, n, n) + mask[None, :, None]
             s = s.reshape(bn, h, n, n)
         p = torch.softmax(s, dim=-1).to(self.dtype)
-        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(bn, n, c)
-        return dense(o, self.proj, self.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(bn, n, h * hd)
+        return row_dense(o, self.proj, self.dtype, g)
 
 
 class SwinBlock(nn.Module):
+    """Under tensor parallelism (``tp_group`` set) this rank holds its share
+    of the MLP's hidden width (fc1's rows, fc2's columns)."""
+
+    TP_LAYERS, TP_UNIT = ("fc1", "fc2"), "hidden channels"
+
     def __init__(self, dim: int, num_heads: int, window: int, shift: int, mlp_ratio: int,
                  qkv_bias: bool, drop_path: float, ln_eps: float,
                  dtype: torch.dtype = torch.float32):
@@ -179,6 +205,8 @@ class SwinBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         self.fc1 = nn.Linear(dim, dim * mlp_ratio)
         self.fc2 = nn.Linear(dim * mlp_ratio, dim)
+        self.tp_units = dim * mlp_ratio
+        self.tp_group = None
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, train: bool = False,
@@ -208,9 +236,9 @@ class SwinBlock(nn.Module):
         x = x + self.drop_path(y, train, generator)
 
         y = layer_norm(x, self.norm2).to(self.dtype)
-        y = dense(y, self.fc1, self.dtype)
+        y = dense(copy_to_tp(y, self.tp_group), self.fc1, self.dtype)
         y = F.gelu(y, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
-        y = dense(y, self.fc2, self.dtype)
+        y = row_dense(y, self.fc2, self.dtype, self.tp_group)
         return x + self.drop_path(y, train, generator)
 
 

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from cosa_tpu_torch.ops.resize import resize_bilinear
+from cosa_tpu_torch.parallel.tensor import all_reduce_sum_, group_size
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -52,15 +53,24 @@ def seg_loss(
     mask_label: torch.Tensor,
     fg_alpha: float = 0.5,
     ignore_index: int = 255,
+    group=None,
 ) -> torch.Tensor:
     """fg/bg-separated masked CE (reference utils/seg_helper.py:800-813):
-    each term sum-normalized by its own pixel count + 1e-6."""
+    each term sum-normalized by its own pixel count + 1e-6.
+
+    The counts couple the samples, so under data parallelism (``group``,
+    the data group) they are summed over the group's ranks, and the local
+    sums over the global counts are scaled by the group size: the
+    gradient averaged over the group, and the value averaged over it, are
+    then the global batch's ``global_sum / (global_count + 1e-6)``."""
     nll = _per_pixel_nll(seg_pred, mask_label)
     bg_mask = mask_label == 0
     fg_mask = (mask_label != 0) & (mask_label != ignore_index)
     zero = torch.zeros_like(nll)
-    bg = torch.where(bg_mask, nll, zero).sum() / (bg_mask.sum() + 1e-6)
-    fg = torch.where(fg_mask, nll, zero).sum() / (fg_mask.sum() + 1e-6)
+    counts = all_reduce_sum_(torch.stack([bg_mask.sum(), fg_mask.sum()]), group)
+    scale = group_size(group)
+    bg = torch.where(bg_mask, nll, zero).sum() * scale / (counts[0] + 1e-6)
+    fg = torch.where(fg_mask, nll, zero).sum() * scale / (counts[1] + 1e-6)
     return (1.0 - fg_alpha) * bg + fg_alpha * fg
 
 
@@ -100,8 +110,10 @@ def cam_loss_v3(
     cambgmax: bool = True,
     fg_alpha: float = 0.5,
     ignore_index: int = 255,
+    group=None,
 ) -> torch.Tensor:
-    """Hard-label CE variant (utils/seg_helper.py:626-653)."""
+    """Hard-label CE variant (utils/seg_helper.py:626-653); ``group`` as
+    :func:`seg_loss` takes it."""
     val = seg_ps.amax(dim=-1)
     lab = torch.argmax(seg_ps, dim=-1)
     lab = torch.where(val <= seg_confident_thre, torch.full_like(lab, ignore_index), lab)
@@ -109,4 +121,4 @@ def cam_loss_v3(
     bg = (1.0 - ncam.amax(dim=-1, keepdim=True) if cambgmax
           else 1.0 - ncam.mean(dim=-1, keepdim=True))
     mix = resize_bilinear(torch.cat([bg, ncam], dim=-1), tuple(lab.shape[1:3]))
-    return seg_loss(mix, lab, fg_alpha=fg_alpha, ignore_index=ignore_index)
+    return seg_loss(mix, lab, fg_alpha=fg_alpha, ignore_index=ignore_index, group=group)

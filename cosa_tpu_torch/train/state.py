@@ -7,16 +7,19 @@ random heads start different). :class:`GMMState` is the JAX package's
 (train/state.py:23-64): the two ring buffers of CAM-max rows the GMM
 thresholds are fitted on, the write pointer, and the EMAs of the four
 thresholds (the reference's host-side queues and EMA trackers,
-main.py:94-103).
+main.py:94-103). Under data parallelism the queues hold the global batch's
+rows, as the JAX package's do (train/loop.py:71-73).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from cosa_tpu_torch.models.network import CoSANetwork, build_model
+from cosa_tpu_torch.parallel.mesh import Mesh, broadcast_, shard_module_, split_tensor
 from cosa_tpu_torch.train.optimizer import GroupOptimizer
 
 
@@ -70,9 +73,10 @@ def init_gmm_state(cfg, global_batch: int, device=None) -> GMMState:
                     ema_high_aux=scalar(cfg.high_thre_aux))
 
 
-def create_train_state(cfg, device=None) -> TrainState:
+def create_train_state(cfg, device=None, global_batch: Optional[int] = None) -> TrainState:
     """Student seeded with ``cfg.seed``, teacher with ``cfg.seed + 1``; the
-    teacher never trains (eval mode, no gradients)."""
+    teacher never trains (eval mode, no gradients). The GMM queues are
+    sized for ``global_batch`` (default ``cfg.batch_size``, one process)."""
     student = build_model(cfg, device, seed=cfg.seed).train()
     teacher = build_model(cfg, device, seed=cfg.seed + 1).eval()
     teacher.requires_grad_(False)
@@ -80,8 +84,30 @@ def create_train_state(cfg, device=None) -> TrainState:
         student=student,
         teacher=teacher,
         optimizer=GroupOptimizer(cfg, student),
-        gmm=init_gmm_state(cfg, cfg.batch_size, next(student.parameters()).device),
+        gmm=init_gmm_state(cfg, global_batch or cfg.batch_size,
+                           next(student.parameters()).device),
     )
+
+
+def bind_state_(state: TrainState, mesh: Mesh) -> None:
+    """Lay a full (unsharded) state onto ``mesh``, in place: rank 0's
+    weights, optimizer moments and GMM state broadcast to every rank (each
+    builds the same seeded init, but a loaded file must not drift), then
+    the student, the teacher and the moments sharded over the model axis."""
+    if mesh.world == 1:
+        return
+    opt = state.optimizer.opt
+    broadcast_([*state.student.state_dict().values(), *state.teacher.state_dict().values(),
+                *(v for st in opt.state.values() for v in st.values() if torch.is_tensor(v) and v.ndim),
+                *(getattr(state.gmm, k) for k in GMMState.TENSORS)], mesh)
+    split = shard_module_(state.student, mesh)
+    shard_module_(state.teacher, mesh)
+    params = dict(state.student.named_parameters())
+    for name, (dim, parts) in split.items():
+        st = opt.state.get(params[name], {})
+        for k, v in st.items():
+            if torch.is_tensor(v) and v.ndim:
+                st[k] = split_tensor(v, dim, parts, mesh.tp, mesh.tp_rank)
 
 
 @torch.no_grad()

@@ -23,10 +23,11 @@ while step <= warmup_iters.
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from cosa_tpu_torch.models.network import require_cosa_interface
@@ -48,6 +49,8 @@ from cosa_tpu_torch.ops.gmm import gmm_thresholds
 from cosa_tpu_torch.ops.image import denormalize01, normalize
 from cosa_tpu_torch.ops.par import par_refine
 from cosa_tpu_torch.ops.resize import resize_bilinear
+from cosa_tpu_torch.parallel.mesh import Mesh
+from cosa_tpu_torch.parallel.tensor import all_cat, coalesced_, group_size
 from cosa_tpu_torch.train.state import GMMState, TrainState, ema_update, use_gmm_aux
 
 
@@ -69,10 +72,12 @@ def _gmm_maxrow(valid_cam: torch.Tensor, gmmscale: int) -> torch.Tensor:
     return red.amax(dim=-1).reshape(valid_cam.shape[0], -1)
 
 
-def _gmm_update(cfg, gmm: GMMState, valid_cam, valid_cam_aux) -> None:
+def _gmm_update(cfg, gmm: GMMState, valid_cam, valid_cam_aux, group=None) -> None:
     """The JAX package's GMM update (train/step.py:151-180), in place: each
     head with GMM on writes its rows from the OLD pointer, refits its
-    thresholds on its queue and moves their EMAs."""
+    thresholds on its queue and moves their EMAs. Under data parallelism
+    the rows written are the global batch's (every data rank's, in rank
+    order, gathered over ``group``), so every rank fits the same queue."""
     d = cfg.gmmemadecay
     ptr = gmm.ptr
     for on, cam, q, lo_k, hi_k in (
@@ -81,7 +86,8 @@ def _gmm_update(cfg, gmm: GMMState, valid_cam, valid_cam_aux) -> None:
         if not on:
             continue
         queue = getattr(gmm, q)
-        gmm.ptr = _update_queue(queue, ptr, _gmm_maxrow(cam, cfg.gmmscale))
+        rows = all_cat(_gmm_maxrow(cam, cfg.gmmscale), group)
+        gmm.ptr = _update_queue(queue, ptr, rows)
         lo, hi = gmm_thresholds(queue, cfg.gmmfilter_thre, 3, cfg.gmm_em_iters,
                                 cfg.gmm_em_subsample)
         setattr(gmm, lo_k, getattr(gmm, lo_k) * d + lo * (1 - d))
@@ -97,12 +103,37 @@ def drop_path_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(key)
 
 
-def build_train_step(cfg) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dict]:
+def average_gradients_(params, group) -> None:
+    """Every gradient of ``params`` averaged over ``group`` (the data
+    group), in place, by one all-reduce per dtype and device. Which
+    parameters hold a gradient is fixed by the configuration, not by the
+    data, so the buffers agree across ranks."""
+    if group is None:
+        return
+    n = group_size(group)
+
+    def mean(flat):
+        dist.all_reduce(flat, group=group)
+        flat /= n
+
+    coalesced_([p.grad for p in params if p.grad is not None], mean)
+
+
+def build_train_step(cfg, mesh: Optional[Mesh] = None
+                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dict]:
+    """The step of ``cfg`` on this rank of ``mesh`` (default: one process).
+    The batch it takes is this data rank's rows of the global batch; the
+    state's modules are bound to the mesh (``parallel/mesh.py::
+    shard_module_``). The metrics it returns are this rank's: seg_loss
+    (and the losses that hold it) already carry the global normalizer, so
+    their mean over the data group is the global batch's value."""
     require_cosa_interface(cfg)
+    mesh = mesh or Mesh()
+    dp_group = mesh.dp_group
     camloss_fn = {
         "v1": cam_loss_v1,
         "v2": cam_loss_v2,
-        "v3": partial(cam_loss_v3, seg_confident_thre=cfg.segconf_thre),
+        "v3": partial(cam_loss_v3, seg_confident_thre=cfg.segconf_thre, group=dp_group),
     }[cfg.camloss_version]
     energy_convention = float(cfg.energy_convention)
     if cfg.energy_filter == "rff" and energy_convention <= 0:
@@ -143,7 +174,7 @@ def build_train_step(cfg) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dic
             valid_cam_aux = cam_validation(cam_aux_ps, cls_label)
             if gmm_main or gmm_aux:
                 with record_function("gmm"):
-                    _gmm_update(cfg, state.gmm, valid_cam, valid_cam_aux)
+                    _gmm_update(cfg, state.gmm, valid_cam, valid_cam_aux, dp_group)
             g = state.gmm
             # the logged pair is a 0-d tensor on the device either way
             thre = (g.ema_low, g.ema_high) if gmm_main else tuple(
@@ -181,10 +212,10 @@ def build_train_step(cfg) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dic
             cls_aux_loss = multilabel_soft_margin(out["cls_aux"], cls_label)
             seg_pred = resize_bilinear(out["seg"], (h, w))
             sl = seg_loss(seg_pred, refine_mask, fg_alpha=cfg.segfg_alpha,
-                          ignore_index=cfg.ignore_index)
+                          ignore_index=cfg.ignore_index, group=dp_group)
             if cfg.aux_cam2seg:
                 sl_aux = seg_loss(seg_pred, refine_mask_aux, fg_alpha=cfg.segfg_alpha,
-                                  ignore_index=cfg.ignore_index)
+                                  ignore_index=cfg.ignore_index, group=dp_group)
                 sl = (1 - cfg.aux_cam2seg_alpha) * sl + cfg.aux_cam2seg_alpha * sl_aux
             cl = camloss_fn(out["cam"], valid_seg_ps)
             if cfg.aux_seg2cam:
@@ -211,6 +242,7 @@ def build_train_step(cfg) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dic
         with record_function("backward"):
             state.optimizer.zero_grad()
             total.backward()
+            average_gradients_(state.student.parameters(), dp_group)
         with record_function("optimizer"):
             state.optimizer.step(state.step)
         with record_function("ema"):

@@ -15,6 +15,7 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
 
 class AverageMeter:
@@ -56,7 +57,8 @@ class EMATracker:
 
 
 def is_host0() -> bool:
-    return True  # one process drives the one GPU
+    """Rank 0 of the process group, or the only process."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def format_iou_table(

@@ -18,6 +18,7 @@ from cosa_tpu_torch.cli import evaluate as cli_evaluate
 from cosa_tpu_torch.cli import train as cli_train
 from cosa_tpu_torch.config import preset_config
 from cosa_tpu_torch.data.loader import build_val_dataset
+from cosa_tpu_torch.parallel.mesh import Mesh
 from cosa_tpu_torch.train import checkpoint as ckpt
 from cosa_tpu_torch.train import loop
 from cosa_tpu_torch.train.state import create_train_state
@@ -115,11 +116,13 @@ def test_validation_best_pick_follows_the_jax_rules(tmp_path, monkeypatch):
     ])
     monkeypatch.setattr(loop, "evaluate", lambda *a, **k: next(rounds))
     writer = MetricWriter(out)
-    _, seg, cam = loop._run_validation(cfg, state, None, writer, 2, out, -1.0, -1.0, "cpu")
+    _, seg, cam = loop._run_validation(cfg, state, None, writer, 2, out, -1.0, -1.0, "cpu",
+                                       Mesh())
     assert (seg, cam) == (41.23, 35.0)
     assert _saved(out, "seg", state) == dict(s_or_t="s", iter=2, result=41.23)
     assert _saved(out, "cam", state) == dict(s_or_t="t", iter=2, result=35.0)
-    _, seg, cam = loop._run_validation(cfg, state, None, writer, 4, out, seg, cam, "cpu")
+    _, seg, cam = loop._run_validation(cfg, state, None, writer, 4, out, seg, cam, "cpu",
+                                       Mesh())
     assert (seg, cam) == (41.23, 35.0)
     assert _saved(out, "seg", state)["iter"] == 4
     assert _saved(out, "cam", state)["iter"] == 2
@@ -131,8 +134,8 @@ def test_validation_best_pick_follows_the_jax_rules(tmp_path, monkeypatch):
 def test_emergency_checkpoint_on_a_failed_step(tmp_path, monkeypatch):
     real = loop.build_train_step
 
-    def failing(cfg):
-        step = real(cfg)
+    def failing(cfg, mesh):
+        step = real(cfg, mesh)
 
         def run(state, batch):
             if state.step == 1:

@@ -15,7 +15,10 @@ shapes). The opt-in path's torch ops on the card against the CPU: the
 permutohedral lattice's integer structure equal, its filter within 1e-5
 relative and bitwise repeatable; GMM thresholds and PAR within 1e-5; the
 zoo's swin_tiny_test forward within 1e-4. The int8 dense on the card equal
-to the CPU's bitwise, and refused outside torch._int_mm's shapes."""
+to the CPU's bitwise, and refused outside torch._int_mm's shapes. Two gloo
+ranks on the one card (data parallelism) against one process at the global
+batch: losses within 5e-3 relative, the same launches per rank; K1 and K2
+at tensor parallelism's local head count."""
 
 import math
 
@@ -422,3 +425,44 @@ def test_int8_product_outside_the_int_mm_limits_raises(gpu):
     lin = torch.nn.Linear(64, 36).to(gpu).requires_grad_(False)
     with pytest.raises(ValueError, match="multiples of 8"):
         quant.int8_matmul(torch.ones((2, 20, 64), device=gpu), lin, torch.float32)
+
+
+def test_gloo_dp2_on_one_card_matches_one_process(gpu):
+    """Two ranks over gloo on the one card (parallel/launch.py), batch 2
+    each, against one process at the global batch of 4 from the same state
+    and batches: two steps' losses within 5e-3 relative (the bound of
+    chip_smoke.py's phases 5 and 14), the same K1/K2/K3 launches on each
+    rank as in the one process."""
+    from cosa_tpu_torch.config import preset_config
+    from cosa_tpu_torch.parallel.launch import spawn, steps_worker
+    from cosa_tpu_torch.train.state import create_train_state
+
+    kw = dict(backbone="vit_small_patch16_224", crop_size=64, energy_convention=0.6,
+              warmup_iters=0)
+    one_cfg = preset_config("synthetic", batch_size=4, **kw)
+    state = create_train_state(one_cfg, "cpu")
+    init = dict(student=state.student.state_dict(), teacher=state.teacher.state_dict())
+    rng = np.random.default_rng(0)
+    batches = [dict(wimg=rng.integers(0, 255, (4, 64, 64, 3)).astype(np.uint8),
+                    simg=rng.integers(0, 255, (4, 64, 64, 3)).astype(np.uint8),
+                    cls_label=(rng.random((4, 20)) > 0.8).astype(np.float32),
+                    img_box=np.tile(np.array([[0, 64, 0, 64]], np.int32), (4, 1)))
+               for _ in range(2)]
+    one = steps_worker(0, one_cfg, gpu, init, batches)
+    ranks = spawn(steps_worker, 2, preset_config("synthetic", batch_size=2, dp=2, **kw),
+                  "cuda:0", init, batches)
+    assert one["launches"] == {"flash_fwd": 2 * 48, "flash_bwd": 2 * 12, "rff_phi": 2,
+                               "flash_fwd_bf16exp": 0, "flash_fwd_nomax": 0}
+    for out in ranks:
+        assert out["launches"] == one["launches"]
+        for got, want in zip(out["metrics"], one["metrics"]):
+            for k in ("overall_loss", "cls_loss", "cls_aux_loss", "seg_loss", "cam_loss",
+                      "reg_loss"):
+                assert abs(got[k] - want[k]) <= 5e-3 * abs(want[k]), (k, got[k], want[k])
+
+
+@pytest.mark.parametrize("n", [197, 785, 1765])
+def test_flash_kernels_at_the_tensor_parallel_head_count(gpu, n):
+    """K1 and K2 at tp=2's local head count of ViT-B (6 of 12 heads, B*H
+    = 24 at batch 4) and the main path's token counts."""
+    _flash_vs_plain(gpu, 4, 6, n, None)

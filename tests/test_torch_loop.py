@@ -13,7 +13,8 @@ from cosa_tpu.data.loader import build_train_loader as jax_build_loader
 from cosa_tpu_torch.config import preset_config as torch_preset
 from cosa_tpu_torch.data.loader import build_train_loader
 from cosa_tpu_torch.eval.crf import crf_refine_host
-from cosa_tpu_torch.eval.engine import evaluate
+from cosa_tpu_torch.models.network import build_model
+from cosa_tpu_torch.parallel.mesh import Mesh, shard_module_
 from cosa_tpu_torch.train.loop import train
 
 
@@ -63,13 +64,16 @@ def test_train_without_device_needs_a_gpu(tmp_path):
 
 
 def test_unported_options_raise_up_front():
-    for kw in (dict(profile_dir="p"), dict(tp=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _tiny(**kw)
+    # a layout the process group cannot hold, before any work: one process
+    for kw in (dict(tp=2), dict(dp=2)):
+        with pytest.raises(ValueError, match="world size"):
+            train(_tiny(work_dir="unused", **kw), device="cpu")
+    # the head-aligned qkv split: vit_tiny_test's 4 heads over 3 model ranks
+    model = build_model(_tiny(), "cpu")
+    with pytest.raises(ValueError, match="4 heads do not split over tp=3"):
+        shard_module_(model, Mesh(world=3, tp=3))
     with pytest.raises(NotImplementedError, match="ViT-only"):
         _tiny(model="swinend2end", backbone="swin_tiny_test", teacher_int8=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        evaluate(_tiny(), None, None, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="native"):
         crf_refine_host(_tiny(crf_backend="device"), torch.zeros((4, 4, 3), dtype=torch.uint8),
                         torch.full((4, 4, 2), 0.5))
