@@ -90,6 +90,13 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      all-reduce of the student's gradient on the card; NCCL at world size
      1 through torch.distributed.run and cli/train.py; dp = 2 over NCCL
      where there are two cards; sec/iter of each beside phase 4's;
+ 15. the run presets and reports (cli/run_synth.py, report_synth.py,
+     parity_voc.py) on phase 8's tree: the synthrun preset at full width
+     for 40 steps with validations at 20 and 40 and finaleval with the
+     device CRF, report_synth's table and 2 panels of its best-seg
+     weights, parity_voc on phase 8's best-seg weights (its per-class
+     table equal to finaleval's result on them, its exit code the one
+     that table implies); exact launch counts for each;
 then print the kernels' JSON line, the card's name and power limit, and
 the device JSON line last.
 
@@ -2302,6 +2309,145 @@ def phase_parallel(smi: str, sec_iter: float, convention: float):
         f"global batch 4 in each")
     return launches
 
+# phase 15: the synthrun preset's run on phase 8's tree, and the panels
+# report_synth dumps
+P15_STEPS, P15_EVAL, P15_PANELS = 40, 20, 2
+
+
+def phase_runs(smi: str, out8: str, cfg8):
+    """Phase 15, on phase 8's ShapesWSSS tree: the ``synthrun`` preset of
+    cli/run_synth.py at full width (ViT-B/16 at 448, batch 4, bf16, from
+    scratch) for 40 steps with validations at 20 and 40 and finaleval with
+    the device CRF; report_synth on its output with 2 panels; parity_voc on
+    phase 8's best-seg weights, its table held to finaleval's result on
+    those weights and its exit code to the one that table implies. Exact
+    launch counts for each. Returns each run's counts."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    import cosa_tpu_torch.train.loop as loop_mod
+    from cosa_tpu_torch.cli import parity_voc, report_synth, run_synth
+    from cosa_tpu_torch.config import diff_from_preset, parse_cli, preset_config
+    from cosa_tpu_torch.data.datasets import VOC_CLASSES
+    from cosa_tpu_torch.data.loader import build_val_dataset
+    from cosa_tpu_torch.eval.engine import score_names
+
+    root, work = cfg8.data_root, cfg8.work_dir
+    argv = ["synthrun", "p15_synthrun", "--data_root", root, "--split_dir", cfg8.split_dir,
+            "--max_iters", str(P15_STEPS), "--eval_iters", str(P15_EVAL),
+            "--finalval", "true", "--work_dir", work]
+    cfg = parse_cli(run_synth.train_argv(argv[0], argv[1], argv[2:]))
+    out = loop_mod.output_dir(cfg)
+    n_val = len(build_val_dataset(cfg))
+    per_batch = 12 * len(cfg.eval_scales)  # K1 per eval batch: 12 blocks at each scale
+    val_k1 = -(-n_val // cfg.eval_batch) * per_batch  # one network on the val split
+    counts = {}
+
+    def run(tag, fn, **want):
+        _reset_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            res = fn()
+        torch.cuda.synchronize()
+        counts[tag] = _counts()
+        if counts[tag] != _want(**want):
+            raise AssertionError(f"phase 15 {tag}: launch counts {counts[tag]} != {_want(**want)}")
+        return res, text.getvalue(), time.time() - t0
+
+    shutil.rmtree(out, ignore_errors=True)
+    n_vals = P15_STEPS // P15_EVAL
+    _, _, secs = run("synthrun", lambda: run_synth.main(argv),
+                     flash_fwd=48 * P15_STEPS + 2 * n_vals * val_k1 + val_k1,
+                     flash_bwd=12 * P15_STEPS, rff_phi=P15_STEPS + 2)
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    trains = [r for r in recs if r["kind"] == "train"]
+    vals = [r for r in recs if r["kind"] == "val"]
+    final = [r for r in recs if r["kind"] == "final"]
+    its = list(range(P15_EVAL, P15_STEPS + 1, P15_EVAL))
+    if [r["iter"] for r in trains] != its or \
+            [(r["iter"], r["model"]) for r in vals] != [(i, m) for i in its for m in ("ON", "AN")] \
+            or len(final) != 1:
+        raise AssertionError(f"phase 15 synthrun: records {[(r['kind'], r.get('iter')) for r in recs]}")
+    for r in trains:
+        if not all(math.isfinite(r[k]) for k in loop_mod.LOSS_KEYS):
+            raise AssertionError(f"phase 15 synthrun: non-finite loss {r}")
+    for r in vals + final:
+        _check_scores(f"phase 15 synthrun {r['kind']} {r.get('model', '')}",
+                      {k: v for k, v in r.items() if k in ("CAM", "aux_CAM", "Seg_ps", "Seg_vd",
+                                                         "Seg_crf")})
+    with open(os.path.join(out, "print.out")) as f:
+        printed = f.read()
+    with open(os.path.join(out, "log_val.txt")) as f:
+        first_val = f.readline().strip()
+    want_diff = {"pretrained": False, "lr": 3e-4, "warmup_iters": 1500, "lr_warmup_iters": 500,
+                 "warmup_gate_floor": 0.01, "batch_size": 4, "max_iters": P15_STEPS,
+                 "eval_iters": P15_EVAL}
+    diff = diff_from_preset(cfg)
+    if any(diff.get(k) != v for k, v in want_diff.items()) or \
+            not printed.startswith(f"config diff vs VOC12 preset: {diff}") or \
+            "Final Model Result" not in printed or first_val != f"iters:{P15_EVAL - 1}" or \
+            not os.path.exists(os.path.join(out, "best_seg", "params.pt")):
+        raise AssertionError(f"phase 15 synthrun: config {diff}, logs {printed[:200]!r}, "
+                             f"log_val {first_val!r}")
+    conv = [ln for ln in printed.splitlines() if ln.startswith("energy convention")]
+    log(f"phase 15 synthrun preset: {P15_STEPS} steps, validations at {its}, finaleval "
+        f"Seg_vd {final[0]['Seg_vd']:.4f} Seg_crf {final[0]['Seg_crf']:.4f}, {secs:.1f} s, "
+        f"sec/iter {[round(r['itertime'], 4) for r in trains]}; {conv[0] if conv else ''}; "
+        f"launches {counts['synthrun']}, on {smi}")
+
+    panels = os.path.join(out, "qualitative")
+    _, text, secs = run("report_synth", lambda: report_synth.main(
+        ["--out_dir", out, "--data_root", root, "--split_dir", cfg.split_dir,
+         "--panels", str(P15_PANELS)]),
+        flash_fwd=-(-P15_PANELS // cfg.eval_batch) * per_batch)
+    rows = [f"| {i} | {100 * v['ON']['CAM']:.1f} | {100 * v['ON']['Seg_vd']:.1f} | "
+            f"{100 * v['AN']['CAM']:.1f} | {100 * v['AN']['Seg_vd']:.1f} |"
+            for i, v in ((i, {r["model"]: r for r in vals if r["iter"] == i}) for i in its)]
+    seg_pngs = os.listdir(os.path.join(panels, "seg"))
+    if not all(row in text.splitlines() for row in rows) or "Best val" not in text or \
+            "Final Model Result" not in text or len(seg_pngs) != P15_PANELS:
+        raise AssertionError(f"phase 15 report_synth: {text!r}, panels {seg_pngs}")
+    log(f"phase 15 report_synth: the trajectory rows {rows}, {len(seg_pngs)} panels, "
+        f"{secs:.1f} s, launches {counts['report_synth']}")
+
+    weights = os.path.join(out8, "best_seg", "params.pt")
+    shutil.rmtree(os.path.join(work, "parity_voc"), ignore_errors=True)
+    rc, text, secs = run("parity_voc", lambda: parity_voc.main(
+        [weights, "--voc_root", root, "--split_dir", cfg8.split_dir, "--work_dir", work]),
+        flash_fwd=val_k1)
+    ref_cfg = preset_config("VOC12", name="p15_parity_ref", work_dir=work, data_root=root,
+                            split_dir=cfg8.split_dir, pretrained_path=weights)
+    shutil.rmtree(loop_mod.output_dir(ref_cfg), ignore_errors=True)
+    ref, _, _ = run("parity_ref", lambda: loop_mod.finaleval(ref_cfg, device="cuda"),
+                    flash_fwd=val_k1)
+    _check_scores("phase 15 parity reference", {k: ref[k]["miou"] for k in score_names(ref)})
+    with open(parity_voc.EXPECTED) as f:
+        expected = json.load(f)
+    lines, want_rc = text.splitlines(), 0
+    for fam in ("Seg_vd", "Seg_crf"):
+        names = [(n, ref[fam]["iou"][i], expected[fam][n], 1.0) for i, n in enumerate(VOC_CLASSES)]
+        for name, iou, exp, tol in names + [("mIoU", ref[fam]["miou"], expected[fam]["mIoU"], 0.5)]:
+            ours = 100.0 * float(iou)
+            if not any(ln.startswith(f"{name:14s} {ours:7.2f}  ref {exp:7.2f}") for ln in lines):
+                raise AssertionError(f"phase 15 parity_voc {fam} {name}: {ours:.2f} not in "
+                                     f"{text!r}")
+            want_rc |= int(abs(ours - exp) > tol)
+    if rc != want_rc:
+        raise AssertionError(f"phase 15 parity_voc: exit code {rc}, the table implies {want_rc}")
+    log(f"phase 15 parity_voc: phase 8's best-seg weights on {n_val} val images, the table "
+        f"equal to finaleval's (Seg_vd {ref['Seg_vd']['miou']:.4f}, Seg_crf "
+        f"{ref['Seg_crf']['miou']:.4f}), exit code {rc} as the table implies, {secs:.1f} s; "
+        f"launches {counts['parity_voc']}")
+    log("phase 15 ok: the synthrun preset trains, validates and scores with exact launches; "
+        "report_synth prints its trajectory and dumps the panels; parity_voc's table and exit "
+        "code agree with finaleval")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2331,13 +2477,14 @@ def main() -> int:
     zoo = phase_zoo(smi, cfg.data_root)
     int8, legacy = phase_int8_optim_legacy(smi, sec_iter, convention)
     parallel = phase_parallel(smi, sec_iter, convention)
+    presets = phase_runs(smi, out, cfg)
     for r in rows:
         # launches on the kernel's own path: training for K1-K3, the
         # microbenchmark for K4; the other paths' runs beside them
         r["launches"] = (mb_counts if r["name"].startswith("flash_fwd_") else counts)[r["name"]]
         for key, runs in (("scoring", scoring), ("optin", optin), ("pseudo", pseudo),
                           ("variant", variants), ("zoo", zoo), ("int8", int8),
-                          ("legacy", legacy), ("parallel", parallel)):
+                          ("legacy", legacy), ("parallel", parallel), ("runs", presets)):
             r[f"{key}_launches"] = {tag: c[r["name"]] for tag, c in runs.items()}
         r["ok"] = True
     log(json.dumps({"kernels": rows}))
