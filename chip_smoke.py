@@ -97,6 +97,13 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      weights, parity_voc on phase 8's best-seg weights (its per-class
      table equal to finaleval's result on them, its exit code the one
      that table implies); exact launch counts for each;
+ 16. the benchmark and profiling twins (cli/bench.py, bench_scales.py,
+     bench_loader.py, bench_e2e.py, profile_step.py) at short counts, each
+     through its main: every line parses with finite numbers, each bench
+     line's K1/K2/K3 launches per timed step are exact and its MFU lies in
+     (0, 1.05), the loader's thread and process pools run, the profile's
+     trace holds kernel events under every default span and its buckets
+     add up to the window; exact launch counts for each;
 then print the kernels' JSON line, the card's name and power limit, and
 the device JSON line last.
 
@@ -2448,6 +2455,164 @@ def phase_runs(smi: str, out8: str, cfg8):
     return counts
 
 
+# phase 16: the benchmark twins at short counts
+P16_ITERS, P16_SCALE_ITERS = 5, 3  # timed steps: bench's lines; each scale variant
+P16_E2E_IMGS, P16_E2E_ITERS = 32, 10
+P16_LOADER = ("4", "-4")
+P16_LOADER_BATCHES = 10
+P16_PROFILE_STEPS = 3  # profiled steps; the pieces run P16_SCALE_ITERS calls each
+P16_MFU = (0.0, 1.05)
+K1_PER_STEP = {3: 48, 2: 36, 1: 24}  # K1 per step by teacher scales (12 blocks each + student)
+
+
+def _finite(x, where: str) -> None:
+    """Every number inside ``x`` is finite."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            _finite(v, f"{where}.{k}")
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            _finite(v, f"{where}[{i}]")
+    elif isinstance(x, float) and not math.isfinite(x):
+        raise AssertionError(f"phase 16: {where} = {x}")
+
+
+def _json_lines(text: str, what: str):
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"phase 16 {what}: no JSON line in {text[-2000:]!r}")
+    for i, line in enumerate(lines):
+        _finite(line, f"{what}[{i}]")
+    return lines
+
+
+def _check_step_line(line: dict, kind: str, k1: int, k3: int) -> None:
+    want = {"flash_fwd": k1, "flash_bwd": 12, "rff_phi": k3}
+    if line.get("skipped") or line["launches_per_step"] != want:
+        raise AssertionError(f"phase 16 {line['metric']}: launches per step "
+                             f"{line.get('launches_per_step')} != {want} ({line})")
+    if not P16_MFU[0] < line.get("mfu", -1.0) < P16_MFU[1] or line["device"] != kind:
+        raise AssertionError(f"phase 16 {line['metric']}: mfu {line.get('mfu')} outside "
+                             f"{P16_MFU} or device {line['device']} != {kind}")
+
+
+def phase_benchmarks(smi: str, kind: str):
+    """Phase 16: the benchmark and profiling twins (cosa_tpu_torch/cli/
+    bench*.py, profile_step.py) at short counts, each through its main.
+    Every line parses with finite numbers; each bench line's K1/K2/K3
+    launches per timed step are exact (48/12/1 for the VOC default, 0 K3
+    on the lattice line, 36 and 24 K1 at 2 and 1 teacher scales) and its
+    MFU lies in (0, 1.05); the profile's trace holds kernel events, each
+    default span has device time and the buckets add up to the window;
+    exact launch counts for each twin's run. bench_loader runs in a
+    process of its own: its process pool forks, and this process holds a
+    CUDA context and threads. Returns each run's counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cosa_tpu_torch.cli import bench, bench_e2e, bench_scales, profile_step
+    from cosa_tpu_torch.config import voc_config
+
+    root = os.path.join(ROOT, "build", "chip_smoke")
+    counts = {}
+
+    def run(tag, fn, **want):
+        _reset_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            fn()
+        torch.cuda.synchronize()
+        counts[tag] = _counts()
+        if counts[tag] != _want(**want):
+            raise AssertionError(f"phase 16 {tag}: launch counts {counts[tag]} != {_want(**want)}")
+        return _json_lines(text.getvalue(), tag), time.time() - t0
+
+    # each line: its warm-up and timed steps (the counted step runs the plain versions)
+    steps = bench.WARMUP + P16_ITERS
+    lines, secs = run("bench", lambda: bench.main(["--iters", str(P16_ITERS)]),
+                      flash_fwd=48 * 3 * steps, flash_bwd=12 * 3 * steps, rff_phi=2 * steps)
+    by = {ln["metric"]: ln for ln in lines}
+    if len(lines) != 4 or {lines[0]["metric"], lines[-1]["metric"]} != {"voc_train_imgs_per_sec"}:
+        raise AssertionError(f"phase 16 bench: lines {[ln['metric'] for ln in lines]}")
+    for metric, k3 in (("voc_train_imgs_per_sec", 1), ("voc_lattice_train_imgs_per_sec", 0),
+                       ("coco_train_imgs_per_sec", 1)):
+        _check_step_line(by[metric], kind, 48, k3)
+    log(f"phase 16 bench: {secs:.1f} s; " + "; ".join(
+        f"{ln['metric']} {ln['sec_per_iter']:.4f} s/iter, {ln['tflops_per_step']:.3f} TFLOP/step, "
+        f"mfu {ln['mfu']:.4f}" for ln in lines[1:]) + f"; on {smi}")
+
+    steps = bench.WARMUP + P16_SCALE_ITERS
+    lines, secs = run("bench_scales", lambda: bench_scales.main(
+        ["--iters", str(P16_SCALE_ITERS)]),
+        flash_fwd=(48 + 36 + 24) * steps, flash_bwd=12 * 3 * steps, rff_phi=3 * steps)
+    for ln in lines:
+        _check_step_line(ln, kind, K1_PER_STEP[len(ln["pseudo_scales"])], 1)
+    log(f"phase 16 bench_scales: {secs:.1f} s; " + "; ".join(
+        f"{ln['metric']} {ln['sec_per_iter']:.4f} s/iter, mfu {ln['mfu']:.4f}" for ln in lines))
+
+    tree = os.path.join(root, "p16_tree")
+    bench_e2e.build_tree(tree, "voc", P16_E2E_IMGS)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cosa_tpu_torch.cli.bench_loader", "--data_root", tree,
+         "--workers", *P16_LOADER, "--n_batches", str(P16_LOADER_BATCHES)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"phase 16 bench_loader: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = _json_lines(proc.stdout, "bench_loader")
+    if [str(ln["workers"]) for ln in lines] != list(P16_LOADER) or \
+            not all(ln["imgs_per_sec"] > 0 for ln in lines):
+        raise AssertionError(f"phase 16 bench_loader: {lines}")
+    log(f"phase 16 bench_loader: {time.time() - t0:.1f} s; " + "; ".join(
+        f"{ln['workers']} {ln['pool']} workers {ln['imgs_per_sec']:.1f} img/s "
+        f"({1e3 * ln['sec_per_batch']:.1f} ms/batch)" for ln in lines)
+        + f" on {lines[0]['host_cores']} host cores")
+
+    steps = bench_e2e.WARMUP + 2 * P16_E2E_ITERS  # end to end, then compute-only
+    (line,), secs = run("bench_e2e", lambda: bench_e2e.main(
+        [str(P16_E2E_ITERS), "--n_imgs", str(P16_E2E_IMGS)]),
+        flash_fwd=48 * steps, flash_bwd=12 * steps, rff_phi=steps)
+    if line["device"] != kind or not line["sec_per_iter"] > 0 < line["compute_sec_per_iter"]:
+        raise AssertionError(f"phase 16 bench_e2e: {line}")
+    log(f"phase 16 bench_e2e: {secs:.1f} s; e2e {line['sec_per_iter']:.4f} s/iter against "
+        f"compute-only {line['compute_sec_per_iter']:.4f} ({line['e2e_over_compute']:.3f}x)")
+
+    trace = os.path.join(root, "p16_trace.json.gz")
+    # the pieces: full (+1 counted plain), teacher_tta, student_grad, update;
+    # one TTA for the pseudo targets; then the profiled steps (+ wait, warm-up)
+    calls = bench.WARMUP + P16_SCALE_ITERS
+    full = calls + 2 + P16_PROFILE_STEPS
+    lines, secs = run("profile_step", lambda: profile_step.main(
+        ["--iters", str(P16_SCALE_ITERS), "--steps", str(P16_PROFILE_STEPS), "--out", trace]),
+        flash_fwd=48 * full + 36 * (1 + calls) + 12 * calls,
+        flash_bwd=12 * (full + calls), rff_phi=full + calls)
+    pieces, prof = lines[:-1], lines[-1]
+    if [ln["piece"] for ln in pieces] != ["full", "teacher_tta", "student_grad", "update"] or \
+            not P16_MFU[0] < pieces[0]["mfu"] < P16_MFU[1]:
+        raise AssertionError(f"phase 16 profile_step pieces: {pieces}")
+    total = sum(prof["device_ms"].values()) + prof["unattributed_ms"] + prof["idle_ms"]
+    silent = [s for s in profile_step.default_spans(voc_config())
+              if not prof["device_ms"][s] > 0]
+    if not prof["n_kernel_events"] or silent or \
+            abs(total - prof["window_ms"]) > profile_step.SUM_TOL * prof["window_ms"]:
+        raise AssertionError(f"phase 16 profile_step: kernel events {prof['n_kernel_events']}, "
+                             f"spans without device time {silent}, buckets {total} ms against "
+                             f"the window {prof['window_ms']} ms")
+    log(f"phase 16 profile_step: {secs:.1f} s; pieces " + ", ".join(
+        f"{ln['piece']} {ln['ms']:.2f} ms" for ln in pieces)
+        + f"; per step: window {prof['window_ms']:.2f} ms, busy {prof['busy_ms']:.2f}, idle "
+        f"share {prof['idle_share']:.4f}, device ms by span "
+        + json.dumps({k: round(v, 3) for k, v in prof["device_ms"].items()})
+        + f", unattributed {prof['unattributed_ms']:.3f}; kernel shares "
+        + json.dumps(prof["kernel_share"]))
+    log("phase 16 ok: the bench lines parse with exact launches per step and MFU in "
+        f"{P16_MFU}; the loader, end-to-end and profile twins run; the trace's buckets add up "
+        "to its window")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2478,13 +2643,15 @@ def main() -> int:
     int8, legacy = phase_int8_optim_legacy(smi, sec_iter, convention)
     parallel = phase_parallel(smi, sec_iter, convention)
     presets = phase_runs(smi, out, cfg)
+    benches = phase_benchmarks(smi, kind)
     for r in rows:
         # launches on the kernel's own path: training for K1-K3, the
         # microbenchmark for K4; the other paths' runs beside them
         r["launches"] = (mb_counts if r["name"].startswith("flash_fwd_") else counts)[r["name"]]
         for key, runs in (("scoring", scoring), ("optin", optin), ("pseudo", pseudo),
                           ("variant", variants), ("zoo", zoo), ("int8", int8),
-                          ("legacy", legacy), ("parallel", parallel), ("runs", presets)):
+                          ("legacy", legacy), ("parallel", parallel), ("runs", presets),
+                          ("bench", benches)):
             r[f"{key}_launches"] = {tag: c[r["name"]] for tag, c in runs.items()}
         r["ok"] = True
     log(json.dumps({"kernels": rows}))

@@ -8,8 +8,10 @@ the device-side normalize runs inside the train step, so batches cross
 host->device as uint8.
 
 Epoch semantics mirror the reference (main.py:74-113): an infinite stream
-of epochs, each a seeded shuffle of the split; the port drives one GPU, so
-there is one process (index 0 of 1).
+of epochs, each a seeded shuffle of the split. Each data rank of a process
+group reads its contiguous shard of every epoch's order
+(``build_train_loader``'s ``process_index`` of ``process_count``); one
+process is index 0 of 1.
 """
 
 from __future__ import annotations

@@ -17,13 +17,14 @@ metrics. Each phase runs under a ``torch.profiler.record_function`` span
 backward, optimizer, ema), which ``torch.profiler`` reads and which cost next to
 nothing without one. Loss weighting (main.py:240-243): the
 cls losses are always on; seg/cam/reg are scaled by ``warmup_gate_floor``
-while step <= warmup_iters.
+while step <= warmup_iters. The step carries its parts as ``.pieces``
+(:class:`StepPieces`), which cli/profile_step.py times one by one.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -52,6 +53,19 @@ from cosa_tpu_torch.ops.resize import resize_bilinear
 from cosa_tpu_torch.parallel.mesh import Mesh
 from cosa_tpu_torch.parallel.tensor import all_cat, coalesced_, group_size
 from cosa_tpu_torch.train.state import GMMState, TrainState, ema_update, use_gmm_aux
+
+
+class StepPieces(NamedTuple):
+    """The step's parts in the order it runs them, each under its spans:
+    ``teacher_tta(state, wimg)``, ``pseudo_targets(state, tta, simg,
+    cls_label, img_box)``, ``student_loss(state, simg, cls_label, img_box,
+    targets)``, ``backward(state, total)``, ``update(state)``. The images
+    are normalized as the step normalizes them."""
+    teacher_tta: Callable
+    pseudo_targets: Callable
+    student_loss: Callable
+    backward: Callable
+    update: Callable
 
 
 def _update_queue(queue: torch.Tensor, ptr: int, rows: torch.Tensor) -> int:
@@ -151,24 +165,23 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
             return par_refine(imgs, probs, dilations=cfg.par_dilations,
                               num_iter=cfg.par_iters)
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
-        wimg = normalize(batch["wimg"], dtype=act_dtype)
-        simg = normalize(batch["simg"])
-        cls_label = batch["cls_label"].to(torch.float32)
-        img_box = batch["img_box"]
-        h, w = simg.shape[1:3]
-
-        # ---- teacher TTA pseudo labels (no grad) -----------------------
+    def teacher_tta(state: TrainState, wimg: torch.Tensor):
+        """The teacher's multi-scale x flip TTA (no grad): (cam, cam_aux, seg)."""
         def teacher_fwd(x):
             # int8 projections where the TTA batch's min(h', w') reaches
             # teacher_int8_min_size (the 672 scale of the default 448 crop)
             return state.teacher(x, quant=cfg.teacher_int8 and min(
                 x.shape[1], x.shape[2]) >= cfg.teacher_int8_min_size)
 
+        with torch.no_grad(), record_function("teacher_tta"):
+            return multi_scale_camseg(teacher_fwd, wimg, cfg.pseudo_scales, cam_dtype=act_dtype)
+
+    def pseudo_targets(state: TrainState, tta, simg, cls_label, img_box) -> Dict:
+        """The GMM update and the student's targets from the TTA outputs:
+        the pseudo masks of both heads, the soft CAM targets and the
+        thresholds that made the main head's masks."""
+        cam_ps, cam_aux_ps, seg_ps = tta
         with torch.no_grad():
-            with record_function("teacher_tta"):
-                cam_ps, cam_aux_ps, seg_ps = multi_scale_camseg(
-                    teacher_fwd, wimg, cfg.pseudo_scales, cam_dtype=act_dtype)
             cam_src = (cam_ps + cam_aux_ps) / 2 if cfg.use_cammix else cam_ps
             valid_cam = cam_validation(cam_src, cls_label)
             valid_cam_aux = cam_validation(cam_aux_ps, cls_label)
@@ -189,6 +202,7 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
                                    images=denormalize01(simg) if cfg.usepar else None)
                 refine_mask = cam2mask(cams=valid_cam, threshold_high=thre[1],
                                        threshold_low=thre[0], **mask_kwargs)
+                refine_mask_aux = None
                 if cfg.aux_cam2seg:
                     refine_mask_aux = cam2mask(cams=valid_cam_aux, threshold_high=thre_aux[1],
                                                threshold_low=thre_aux[0], **mask_kwargs)
@@ -196,8 +210,14 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
                     seg_ps, cls_label, softmaxtemp=cfg.seg_softmaxtemp,
                     after_softmax=cfg.after_softmax,
                 )
+        return dict(refine_mask=refine_mask, refine_mask_aux=refine_mask_aux,
+                    valid_seg_ps=valid_seg_ps, thre=thre)
 
-        # ---- student loss ------------------------------------------------
+    def student_loss(state: TrainState, simg, cls_label, img_box, targets) -> Dict:
+        """The student's forward, its losses and the energy; ``total`` is
+        the gated sum that the backward takes."""
+        h, w = simg.shape[1:3]
+        refine_mask = targets["refine_mask"]
         # the Swin student trains with live stochastic depth (torch
         # .train() makes the reference MMSWIN's DropPath live); the teacher
         # and evaluation stay deterministic
@@ -214,12 +234,13 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
             sl = seg_loss(seg_pred, refine_mask, fg_alpha=cfg.segfg_alpha,
                           ignore_index=cfg.ignore_index, group=dp_group)
             if cfg.aux_cam2seg:
-                sl_aux = seg_loss(seg_pred, refine_mask_aux, fg_alpha=cfg.segfg_alpha,
+                sl_aux = seg_loss(seg_pred, targets["refine_mask_aux"],
+                                  fg_alpha=cfg.segfg_alpha,
                                   ignore_index=cfg.ignore_index, group=dp_group)
                 sl = (1 - cfg.aux_cam2seg_alpha) * sl + cfg.aux_cam2seg_alpha * sl_aux
-            cl = camloss_fn(out["cam"], valid_seg_ps)
+            cl = camloss_fn(out["cam"], targets["valid_seg_ps"])
             if cfg.aux_seg2cam:
-                cl_aux = camloss_fn(out["cam_aux"], valid_seg_ps)
+                cl_aux = camloss_fn(out["cam_aux"], targets["valid_seg_ps"])
                 cl = (1 - cfg.aux_seg2cam_alpha) * cl + cfg.aux_seg2cam_alpha * cl_aux
         with record_function("energy"):
             reg = get_energy_loss(
@@ -238,27 +259,44 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
         total = cls_loss + cls_aux_loss + gate * (
             cfg.seg_weight * sl + cfg.cam_weight * cl + cfg.reg_weight * reg
         )
+        return dict(total=total, cls_loss=cls_loss, cls_aux_loss=cls_aux_loss,
+                    seg_loss=sl, cam_loss=cl, reg_loss=reg, out=out)
 
+    def backward(state: TrainState, total: torch.Tensor) -> None:
         with record_function("backward"):
             state.optimizer.zero_grad()
             total.backward()
             average_gradients_(state.student.parameters(), dp_group)
+
+    def update(state: TrainState) -> None:
+        """The optimizer's step on the student's gradients, then the EMA."""
         with record_function("optimizer"):
             state.optimizer.step(state.step)
         with record_function("ema"):
             ema_update(state.teacher, state.student, cfg.momentum)
 
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
+        wimg = normalize(batch["wimg"], dtype=act_dtype)
+        simg = normalize(batch["simg"])
+        cls_label = batch["cls_label"].to(torch.float32)
+        img_box = batch["img_box"]
+        targets = pseudo_targets(state, teacher_tta(state, wimg), simg, cls_label, img_box)
+        loss = student_loss(state, simg, cls_label, img_box, targets)
+        backward(state, loss["total"])
+        update(state)
+
         # the logged lr is schedule(step) before the increment: the
         # reference sets lr from global_step, then increments it
         lr = state.optimizer.lr_at(state.step)
         state.step += 1
+        out, thre = loss["out"], targets["thre"]
         return dict(
-            overall_loss=total.detach(),
-            cls_loss=cls_loss.detach(),
-            cls_aux_loss=cls_aux_loss.detach(),
-            seg_loss=sl.detach(),
-            cam_loss=cl.detach(),
-            reg_loss=reg.detach(),
+            overall_loss=loss["total"].detach(),
+            cls_loss=loss["cls_loss"].detach(),
+            cls_aux_loss=loss["cls_aux_loss"].detach(),
+            seg_loss=loss["seg_loss"].detach(),
+            cam_loss=loss["cam_loss"].detach(),
+            reg_loss=loss["reg_loss"].detach(),
             cls_logits=out["cls"].detach(),
             cls_aux_logits=out["cls_aux"].detach(),
             lr=lr,
@@ -266,4 +304,6 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
             thre_high=thre[1],
         )
 
+    # the pieces, for cli/profile_step.py to time on their own
+    train_step.pieces = StepPieces(teacher_tta, pseudo_targets, student_loss, backward, update)
     return train_step
