@@ -94,9 +94,11 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      parity_voc.py) on phase 8's tree: the synthrun preset at full width
      for 40 steps with validations at 20 and 40 and finaleval with the
      device CRF, report_synth's table and 2 panels of its best-seg
-     weights, parity_voc on phase 8's best-seg weights (its per-class
-     table equal to finaleval's result on them, its exit code the one
-     that table implies); exact launch counts for each;
+     weights, report_parity's table and JSON line against the committed
+     JAX run (rule A undecided on one run), parity_voc on phase 8's
+     best-seg weights (its per-class table equal to finaleval's result on
+     them, its exit code the one that table implies); exact launch counts
+     for each;
  16. the benchmark and profiling twins (cli/bench.py, bench_scales.py,
      bench_loader.py, bench_e2e.py, profile_step.py) at short counts, each
      through its main: every line parses with finite numbers, each bench
@@ -2325,10 +2327,12 @@ def phase_runs(smi: str, out8: str, cfg8):
     """Phase 15, on phase 8's ShapesWSSS tree: the ``synthrun`` preset of
     cli/run_synth.py at full width (ViT-B/16 at 448, batch 4, bf16, from
     scratch) for 40 steps with validations at 20 and 40 and finaleval with
-    the device CRF; report_synth on its output with 2 panels; parity_voc on
-    phase 8's best-seg weights, its table held to finaleval's result on
-    those weights and its exit code to the one that table implies. Exact
-    launch counts for each. Returns each run's counts."""
+    the device CRF; report_synth on its output with 2 panels; report_parity
+    on it against the JAX package's committed synthrun (its table and JSON
+    line, rule A undecided); parity_voc on phase 8's best-seg weights, its
+    table held to finaleval's result on those weights and its exit code to
+    the one that table implies. Exact launch counts for each. Returns each
+    run's counts."""
     import contextlib
     import io
     import shutil
@@ -2336,7 +2340,7 @@ def phase_runs(smi: str, out8: str, cfg8):
     import torch
 
     import cosa_tpu_torch.train.loop as loop_mod
-    from cosa_tpu_torch.cli import parity_voc, report_synth, run_synth
+    from cosa_tpu_torch.cli import parity_voc, report_parity, report_synth, run_synth
     from cosa_tpu_torch.config import diff_from_preset, parse_cli, preset_config
     from cosa_tpu_torch.data.datasets import VOC_CLASSES
     from cosa_tpu_torch.data.loader import build_val_dataset
@@ -2421,6 +2425,28 @@ def phase_runs(smi: str, out8: str, cfg8):
     log(f"phase 15 report_synth: the trajectory rows {rows}, {len(seg_pngs)} panels, "
         f"{secs:.1f} s, launches {counts['report_synth']}")
 
+    # report_parity: the 40-step run against the committed JAX synthrun; it
+    # has none of rule A's validations, so one run leaves it undecided. It
+    # reads logs only (no launch), and stays out of the kernels line's counts
+    jax_dir = os.path.join(ROOT, "work_dirs", "synthrun_r3")
+    res, text, secs = run("report_parity", lambda: report_parity.main(
+        ["--jax", jax_dir, "--port", out, "--at", "3000", "3500", "4500"]))
+    launches = counts.pop("report_parity")
+    lines = text.splitlines()
+    on = {r["iter"]: 100 * r["Seg_vd"] for r in vals if r["model"] == "ON"}
+    rows = [f"| {i} | - | {on[i]:.1f} | {on[i]:.1f} | {on[i]:.1f} | {on[i]:.1f} |" for i in its]
+    best = max(100 * r["Seg_vd"] for r in vals)
+    a = res.get("rule_a", {})
+    if not lines or json.loads(lines[-1]) != res or not all(row in lines for row in rows) or \
+            "| 3000 | 40.1 | - | - | - | - |" not in lines or res["verdict"] != "undecided" or \
+            a.get("missing") != [3000, 3500, 4500] or a.get("runs") != 1 or \
+            abs(res["port"].get(os.path.basename(out), -1) - best) > 1e-3 or \
+            abs(res["jax_best"] - 67.3992) > 1e-3:
+        raise AssertionError(f"phase 15 report_parity: {text!r}")
+    log(f"phase 15 report_parity: the table's rows {rows} beside the JAX run's, rule A "
+        f"{res['verdict']} at 1 of {a['seeds_needed']} runs, best {best:.2f} against the bar "
+        f"{res['need']:.2f}, {secs:.3f} s, launches {launches}")
+
     weights = os.path.join(out8, "best_seg", "params.pt")
     shutil.rmtree(os.path.join(work, "parity_voc"), ignore_errors=True)
     rc, text, secs = run("parity_voc", lambda: parity_voc.main(
@@ -2450,8 +2476,8 @@ def phase_runs(smi: str, out8: str, cfg8):
         f"{ref['Seg_crf']['miou']:.4f}), exit code {rc} as the table implies, {secs:.1f} s; "
         f"launches {counts['parity_voc']}")
     log("phase 15 ok: the synthrun preset trains, validates and scores with exact launches; "
-        "report_synth prints its trajectory and dumps the panels; parity_voc's table and exit "
-        "code agree with finaleval")
+        "report_synth prints its trajectory and dumps the panels; report_parity holds it to the "
+        "JAX run; parity_voc's table and exit code agree with finaleval")
     return counts
 
 

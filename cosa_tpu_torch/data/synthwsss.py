@@ -47,7 +47,9 @@ sample is reproducible independently of generation order.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
+from concurrent.futures import ProcessPoolExecutor
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -336,6 +338,28 @@ def _voc_palette() -> bytes:
     return pal.tobytes()
 
 
+POOL_MIN_SAMPLES = 256  # make_dataset's smallest tree to render in a process pool
+
+
+def _write_sample(task) -> list:
+    """Render sample ``idx`` and write its JPEG (and its val mask); return its
+    one-hot label as a list (an array sent back from a worker process would
+    bring a dtype object of its own, which the label file would pickle)."""
+    from PIL import Image
+
+    (root, split, idx, seed, size_range, n_hues, n_textures, fade_range, jpeg_quality,
+     img_dir, seg_dir) = task
+    name = f"synth_{idx:07d}"
+    img, mask, onehot = render_sample(seed, idx, size_range, n_hues=n_hues,
+                                      n_textures=n_textures, fade_range=fade_range)
+    Image.fromarray(img).save(os.path.join(root, img_dir, name + ".jpg"), quality=jpeg_quality)
+    if seg_dir is not None:
+        m = Image.fromarray(boundary_ignore(mask), mode="P")
+        m.putpalette(_voc_palette())
+        m.save(os.path.join(root, seg_dir, name + ".png"))
+    return onehot.tolist()
+
+
 def make_dataset(root: str, n_train: int = 3000, n_val: int = 200,
                  seed: int = 0, jpeg_quality: int = 92,
                  size_range: Tuple[int, int] = (352, 512),
@@ -361,9 +385,12 @@ def make_dataset(root: str, n_train: int = 3000, n_val: int = 200,
     training eval uses val_part unless --valfull, dataloaders/__init__.py:25),
     and the image-level dict the reference loads at coco.py:22 (its real COCO
     copy is a missing large blob in this environment).
-    """
-    from PIL import Image
 
+    A tree of ``POOL_MIN_SAMPLES`` samples or more is rendered and written
+    by a pool of up to 8 processes (one per usable core); a smaller one, in
+    this process, where a pool would cost more than it saves. The files are
+    the same bytes either way.
+    """
     assert layout in ("voc", "coco"), layout
     if n_hues is None:
         n_hues = N_HUES if layout == "voc" else COCO_N_HUES
@@ -387,28 +414,23 @@ def make_dataset(root: str, n_train: int = 3000, n_val: int = 200,
 
     labels: Dict[str, np.ndarray] = {}
     names: Dict[str, list] = {s: [] for s, _, _ in splits}
-    pal = _voc_palette()
     counts = np.zeros(n_fg + 1, np.int64)
-    for split, n, base in splits:
-        for k in range(n):
-            idx = base + k
-            name = f"synth_{idx:07d}"
-            img, mask, onehot = render_sample(
-                seed, idx, size_range, n_hues=n_hues, n_textures=n_textures,
-                fade_range=fade_range,
-            )
-            Image.fromarray(img).save(
-                os.path.join(root, dirs[split], name + ".jpg"),
-                quality=jpeg_quality,
-            )
-            if split in seg_dirs:
-                m = Image.fromarray(boundary_ignore(mask), mode="P")
-                m.putpalette(pal)
-                m.save(os.path.join(root, seg_dirs[split], name + ".png"))
-            labels[name] = onehot
-            names[split].append(name)
-            counts[0] += 1
-            counts[1:] += onehot.astype(np.int64)
+    tasks = [(root, split, base + k, seed, size_range, n_hues, n_textures, fade_range,
+              jpeg_quality, dirs[split], seg_dirs.get(split))
+             for split, n, base in splits for k in range(n)]
+    workers = min(len(os.sched_getaffinity(0)), 8) if len(tasks) >= POOL_MIN_SAMPLES else 1
+    if workers > 1:  # each sample is drawn from (seed, idx) alone: order-free
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+            onehots = list(pool.map(_write_sample, tasks, chunksize=16))
+    else:
+        onehots = [_write_sample(t) for t in tasks]
+    for (_, split, idx, *_), onehot in zip(tasks, onehots):
+        name = f"synth_{idx:07d}"
+        labels[name] = onehot = np.array(onehot, np.float32)
+        names[split].append(name)
+        counts[0] += 1
+        counts[1:] += onehot.astype(np.int64)
 
     for split, lst in names.items():
         with open(os.path.join(split_dir, split + ".txt"), "w") as f:

@@ -107,6 +107,25 @@ def test_make_dataset_writes_the_jax_bytes(tmp_path):
             assert ours[k] == v, k
 
 
+@pytest.mark.parametrize("layout", ["voc", "coco"])
+def test_make_dataset_in_worker_processes_writes_the_same_bytes(tmp_path, monkeypatch, layout):
+    kw = dict(n_train=5, n_val=3, seed=2, size_range=(40, 56), layout=layout,
+              fade_range=(0.35, 1.0))
+    assert 5 + 3 < synthwsss.POOL_MIN_SAMPLES  # below the threshold: in this process
+    meta = synthwsss.make_dataset(str(tmp_path / "one"), **kw)
+    monkeypatch.setattr(synthwsss, "POOL_MIN_SAMPLES", 8)  # at it: in the pool
+    pools = []
+    real_pool = synthwsss.ProcessPoolExecutor
+    monkeypatch.setattr(synthwsss, "ProcessPoolExecutor",
+                        lambda *a, **k: pools.append(a) or real_pool(*a, **k))
+    assert synthwsss.make_dataset(str(tmp_path / "two"), **kw) == meta
+    n = min(len(os.sched_getaffinity(0)), 8)
+    assert [a[0] for a in pools] == ([n] if n > 1 else [])
+    one, two = _tree(tmp_path / "one"), _tree(tmp_path / "two")
+    assert sorted(one) == sorted(two) and len(one) > 8
+    assert all(two[k] == v for k, v in one.items())  # the label file's pickle too
+
+
 def _optin_cfg(root, work, **kw):
     base = dict(backbone="vit_tiny_test", crop_size=64, batch_size=2, mixed_precision=False,
                 flash_attention=False, data_root=root, split_dir=os.path.join(root, "splits"),
