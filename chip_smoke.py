@@ -106,6 +106,13 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      (0, 1.05), the loader's thread and process pools run, the profile's
      trace holds kernel events under every default span and its buckets
      add up to the window; exact launch counts for each;
+ 17. the attention audit (cli/audit_attention.py) on phase 8's tree: the
+     VOC default trained 300 steps from its seeded init (warmups cut), its
+     state saved as the loop saves it, then K1/K2 against the plain and
+     the float64 attention on every block's captured qkv and cotangent,
+     the pseudo masks built with each, and 200 bitwise repeats; a kernel
+     fault by the audit's rule or a repeat that differs fails the run;
+     exact launch counts for both;
 then print the kernels' JSON line, the card's name and power limit, and
 the device JSON line last.
 
@@ -479,7 +486,7 @@ def phase_kernels():
         qkv = _qkv(b, n, h, gen)
         dout = torch.randn((b, n, h * 64), generator=gen, device="cuda").to(torch.bfloat16)
         o, lse = flash.attn_fwd(qkv, h, scale, nv)
-        dqkv = flash.attn_bwd(qkv, o, dout, lse, h, scale, nv).float()
+        dqkv = flash.attn_bwd(qkv, dout, lse, h, scale, nv).float()
         x = qkv.float().requires_grad_(True)
         q, k, v = _split(x, h)
         ref_o = flash.plain_attention(q, k, v, scale, nv).reshape(b, n, h * 64)
@@ -498,8 +505,8 @@ def phase_kernels():
     for n in (785, 786):
         qkv = _qkv(b, n, h, gen)
         dout = torch.randn((b, n, h * 64), generator=gen, device="cuda").to(torch.bfloat16)
-        o, lse = flash.attn_fwd(qkv, h, scale)
-        ms = time_ms(lambda: flash.attn_bwd(qkv, o, dout, lse, h, scale))
+        _, lse = flash.attn_fwd(qkv, h, scale)
+        ms = time_ms(lambda: flash.attn_bwd(qkv, dout, lse, h, scale))
         xb = qkv.detach().clone().requires_grad_(True)
         qb, kb, vb = (t.to(torch.bfloat16) for t in _split(xb, h))
         ref_o = flash.plain_attention(qb, kb, vb, scale)
@@ -515,7 +522,7 @@ def phase_kernels():
             gh, qh, kh, vh, fw[0], fw[1], fw[2], fw[3], fw[4], fw[5], 0.0, False,
             fw[6], fw[7], scale=scale))
         flops = 10.0 * b * h * n * n * 64
-        nbytes = 8.0 * b * h * n * 64 * 2 + b * h * n * 4
+        nbytes = 7.0 * b * h * n * 64 * 2 + b * h * n * 4  # q k v dO, dq dk dv, lse
         bms, by = bound_ms(nbytes, flops, PEAK_BF16)
         log(f"  K2 N={n} B*H={b * h}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"sdpa-flash bwd {lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by}); "
@@ -527,7 +534,7 @@ def phase_kernels():
                 max_abs_err=k2_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                 library_ms=lib,
             ))
-        del qkv, dout, o, lse, xb, ref_o, fw
+        del qkv, dout, lse, xb, ref_o, fw
 
     # ---- K3 RFF phi at the energy shape, vs float64 numpy
     rng = np.random.default_rng(2)
@@ -771,20 +778,6 @@ def _student_qkv_grads(state, simg, detach):
     return [g.float() for g in torch.autograd.grad(loss, qkv)]
 
 
-def _attention_f64(qkv, num_heads, scale, use_kernel, n_valid=None):
-    """The ViT's attention (models/vit.py) in float64 throughout, cast back
-    to qkv's dtype: phase 5's reference for both bf16 paths."""
-    import torch
-
-    b, n, c3 = qkv.shape
-    x = qkv.double().reshape(b, n, 3, num_heads, c3 // (3 * num_heads))
-    s = torch.einsum("bqhd,bkhd->bhqk", x[:, :, 0] * scale, x[:, :, 1])
-    if n_valid is not None and n_valid < n:
-        s = s.masked_fill(torch.arange(n, device=s.device) >= n_valid, float("-inf"))
-    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), x[:, :, 2])
-    return o.reshape(b, n, c3 // 3).to(qkv.dtype)
-
-
 def _recording(fn, into: list):
     """``fn``, appending each result to ``into``."""
     def rec(*args, **kw):
@@ -813,6 +806,7 @@ def phase_flash_vs_plain(convention: float):
 
     import cosa_tpu_torch.models.vit as vit
     import cosa_tpu_torch.train.step as step_mod
+    from cosa_tpu_torch.cli.audit_attention import f64_vit_attention
     from cosa_tpu_torch.data.loader import build_train_loader
     from cosa_tpu_torch.ops.image import normalize
     from cosa_tpu_torch.train.state import create_train_state
@@ -832,7 +826,7 @@ def phase_flash_vs_plain(convention: float):
         for tag, cfg in (("kernel", cfg_k), ("plain", cfg_p), ("f64", cfg_p)):
             masks[tag] = []
             step_mod.cam2mask = _recording(cam2mask, masks[tag])
-            vit.attention = _attention_f64 if tag == "f64" else attention
+            vit.attention = f64_vit_attention if tag == "f64" else attention
             state = create_train_state(cfg, "cuda")
             tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
             if tag != "f64":
@@ -2639,6 +2633,89 @@ def phase_benchmarks(smi: str, kind: str):
     return counts
 
 
+# phase 17: the attention audit at a state past init
+P17_STEPS, P17_LR_WARMUP, P17_GATE, P17_REPEAT = 300, 50, 150, 200
+
+
+def _audit_cfg(root: str):
+    """Phase 17's configuration (its docstring)."""
+    from cosa_tpu_torch.config import preset_config
+
+    return preset_config(
+        "VOC12", backbone="vit_base_patch16_224", crop_size=448, batch_size=4,
+        mixed_precision=True, pretrained=False, data_root=root,
+        split_dir=os.path.join(root, "splits"), max_iters=P17_STEPS, lr=3e-4,
+        lr_warmup_iters=P17_LR_WARMUP, warmup_iters=P17_GATE, warmup_gate_floor=0.01,
+        log_iters=50, eval_iters=10 ** 9, finalval=False, name="audit",
+        work_dir=os.path.join(ROOT, "build", "chip_smoke"))
+
+
+def phase_audit(smi: str, root: str):
+    """Phase 17, on phase 8's ShapesWSSS tree: the VOC default (ViT-B/16 at
+    448, batch 4, bf16, RFF energy) from its seeded init for P17_STEPS
+    steps at the ShapesWSSS runs' lr 3e-4, its warmups cut to P17_LR_WARMUP
+    and P17_GATE steps so that the state leaves init; the state is saved
+    as the loop saves it, and cli/audit_attention.py holds K1/K2 against
+    float64 attention there (every student and teacher block, the pseudo
+    masks, P17_REPEAT bitwise repeats), with its rule: a kernel fault or a
+    repeat that differs fails the run. Exact launch counts for the run and
+    the audit. Returns each one's counts."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from cosa_tpu_torch.cli import audit_attention
+    from cosa_tpu_torch.train import checkpoint as ckpt
+    from cosa_tpu_torch.train.loop import output_dir, train
+
+    cfg = _audit_cfg(root)
+    out = output_dir(cfg)
+    shutil.rmtree(out, ignore_errors=True)
+    counts = {}
+    t0 = time.time()
+    _reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train(cfg, device="cuda")
+    torch.cuda.synchronize()
+    counts["train"] = _counts()
+    want = _want(flash_fwd=48 * P17_STEPS, flash_bwd=12 * P17_STEPS, rff_phi=P17_STEPS + 2)
+    if counts["train"] != want:
+        raise AssertionError(f"phase 17 train: launch counts {counts['train']} != {want}")
+    first, last = res["records"][0], res["records"][-1]
+    log(f"phase 17 train: {P17_STEPS} steps in {time.time() - t0:.1f} s, cls_loss "
+        f"{first['cls_loss']:.4f} at {first['iter']} -> {last['cls_loss']:.4f} at "
+        f"{last['iter']}, seg_loss {last['seg_loss']:.4f}")
+    if not last["cls_loss"] < first["cls_loss"]:
+        raise AssertionError(f"phase 17: the run did not leave init: {first} -> {last}")
+    path = ckpt.save_state(os.path.join(out, "ckpt"), res["state"], P17_STEPS)
+    del res
+    t0 = time.time()
+    _reset_counts()
+    report = audit_attention.audit(cfg, path, "cuda", P17_REPEAT)
+    torch.cuda.synchronize()
+    counts["audit"] = _counts()
+    # the teacher's TTA with the kernels (36), the captured step (48 + 12,
+    # K3 once), each site again (48 + 12), each repeat (the student's
+    # forward and backward, the teacher at its 3 token counts); K3 twice
+    # more in the energy convention's calibration
+    want = _want(flash_fwd=36 + 48 + 48 + 4 * P17_REPEAT, flash_bwd=12 + 12 + P17_REPEAT,
+                 rff_phi=3)
+    if counts["audit"] != want:
+        raise AssertionError(f"phase 17 audit: launch counts {counts['audit']} != {want}")
+    for line in audit_attention.table(report):
+        log(f"phase 17 | {line}")
+    v = report["verdict"]
+    if len(report["sites"]) != 48:
+        raise AssertionError(f"phase 17: expected 48 attention sites, got {len(report['sites'])}")
+    if v["verdict"] != "clean":
+        raise AssertionError(f"phase 17: kernel fault at step {v['step']}: {v['faults']}")
+    log(f"phase 17 ok: the audit at step {v['step']} reads clean in {time.time() - t0:.1f} s "
+        f"(48 sites, {P17_REPEAT} repeats bitwise) on {smi}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2670,6 +2747,7 @@ def main() -> int:
     parallel = phase_parallel(smi, sec_iter, convention)
     presets = phase_runs(smi, out, cfg)
     benches = phase_benchmarks(smi, kind)
+    audit = phase_audit(smi, cfg.data_root)
     for r in rows:
         # launches on the kernel's own path: training for K1-K3, the
         # microbenchmark for K4; the other paths' runs beside them
@@ -2677,7 +2755,7 @@ def main() -> int:
         for key, runs in (("scoring", scoring), ("optin", optin), ("pseudo", pseudo),
                           ("variant", variants), ("zoo", zoo), ("int8", int8),
                           ("legacy", legacy), ("parallel", parallel), ("runs", presets),
-                          ("bench", benches)):
+                          ("bench", benches), ("audit", audit)):
             r[f"{key}_launches"] = {tag: c[r["name"]] for tag, c in runs.items()}
         r["ok"] = True
     log(json.dumps({"kernels": rows}))

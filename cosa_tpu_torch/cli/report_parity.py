@@ -21,6 +21,15 @@ to its own JAX arm (``--jax FIXED_JAX GMM_JAX``), prints each port arm's best
 as a multiple of its JAX arm's (the bar looks from below only), and checks
 the JAX pair's ordering: the fixed arm's best above the GMM arm's.
 
+``--arms A... -- B...`` holds two arms of port runs of one preset against
+each other by their best Seg_vd, with an exact one-sided rank-sum test that
+arm A lies above arm B: U counts the pairs (a, b) with a's best above b's
+(a tie counts one half), and p is the share of the ways to split the pooled
+runs into arms of their sizes whose U is at least the observed one. The
+verdict is ``fault`` where p <= ALPHA and ``spread`` otherwise; with 3
+runs against 4, only complete separation gives p = 1/35 <= 0.05. Each run
+is also held to the bar of the one ``--jax`` run.
+
 Usage:
   python -m cosa_tpu_torch.cli.report_parity --jax work_dirs/synthrun_r3 \
       --port work_dirs/torch_synthrun_h100 work_dirs/torch_synthrun_seed1_h100 \
@@ -28,6 +37,8 @@ Usage:
   python -m cosa_tpu_torch.cli.report_parity \
       --jax work_dirs/gmmab_fixed_r5 work_dirs/gmmab_gmm_r5 \
       --pair work_dirs/torch_gmmab_fixed_h100 work_dirs/torch_gmmab_gmm_h100
+  python -m cosa_tpu_torch.cli.report_parity --jax work_dirs/gmmab_fixed_r5 \
+      --arms PLAIN_RUN... -- KERNEL_RUN...
 """
 
 from __future__ import annotations
@@ -37,7 +48,10 @@ import json
 import os
 import statistics
 from dataclasses import dataclass, field
+from itertools import combinations
 from typing import Dict, List, Optional, Sequence
+
+ALPHA = 0.05  # --arms: the rank-sum test's level
 
 
 @dataclass
@@ -92,6 +106,23 @@ def bar_rule(jax: Run, ports: Sequence[Run], bar: float) -> Dict:
                 meets={p.name: bool(p.best >= need) for p in ports})
 
 
+def rank_sum(a: Sequence[float], b: Sequence[float]) -> Dict:
+    """The exact one-sided rank-sum test that the values ``a`` lie above
+    ``b`` (module docstring): U, its largest value, p and the verdict."""
+    pooled = list(a) + list(b)
+
+    def u(idx) -> float:
+        ys = [y for j, y in enumerate(pooled) if j not in idx]
+        return sum(1.0 if x > y else 0.5 if x == y else 0.0
+                   for x in (pooled[i] for i in idx) for y in ys)
+
+    obs = u(set(range(len(a))))
+    splits = [set(c) for c in combinations(range(len(pooled)), len(a))]
+    p = sum(u(c) >= obs for c in splits) / len(splits)
+    return dict(u=obs, u_max=len(a) * len(b), splits=len(splits), p=p, alpha=ALPHA,
+                verdict="fault" if p <= ALPHA else "spread")
+
+
 def _fmt(x: Optional[float]) -> str:
     return "-" if x is None else f"{x:.1f}"
 
@@ -125,17 +156,40 @@ def main(argv=None) -> Dict:
                     help="the JAX run's directory; with --pair, the fixed and GMM arms'")
     ap.add_argument("--port", nargs="+", default=[])
     ap.add_argument("--pair", nargs=2, default=None, metavar=("FIXED", "GMM"))
+    ap.add_argument("--arms", nargs="+", default=None, metavar="A",
+                    help="arm A's runs, then --, then arm B's")
+    ap.add_argument("arm_b", nargs="*", default=[], metavar="B")
     ap.add_argument("--at", nargs="+", type=int, default=None)
     ap.add_argument("--seeds_needed", type=int, default=4)
     ap.add_argument("--bar", type=float, default=0.85)
     args = ap.parse_args(argv)
     if args.pair is not None and len(args.jax) != 2:
         ap.error("--pair needs --jax FIXED_JAX GMM_JAX")
-    if args.pair is None and (len(args.jax) != 1 or not args.port):
-        ap.error("give one --jax run and one or more --port runs, or --pair")
+    if args.arms is not None and (len(args.jax) != 1 or not args.arm_b or args.pair):
+        ap.error("--arms needs one --jax run and the two arms' runs: --arms A... -- B...")
+    if args.arms is None and args.arm_b:
+        ap.error(f"unexpected arguments {args.arm_b}")
+    if args.pair is None and args.arms is None and (len(args.jax) != 1 or not args.port):
+        ap.error("give one --jax run and one or more --port runs, --pair or --arms")
 
     result: Dict = dict(verdict=None)
-    if args.pair is None:
+    if args.arms is not None:
+        jax = load(args.jax[0])
+        arms = {"A": [load(d) for d in args.arms], "B": [load(d) for d in args.arm_b]}
+        b = bar_rule(jax, arms["A"] + arms["B"], args.bar)
+        print(f"## arms by best Seg_vd (x100); bar {args.bar} x {jax.best:.2f} = "
+              f"{b['need']:.2f}\n")
+        for label, runs in arms.items():
+            for r, line in zip(runs, summary(runs)):
+                print(f"{label} {line} ({'meets' if b['meets'][r.name] else 'misses'} the bar)")
+        t = rank_sum([r.best for r in arms["A"]], [r.best for r in arms["B"]])
+        print(f"\nrank-sum, arm A above arm B: U = {t['u']:g} of {t['u_max']}, p = "
+              f"{t['p']:.4f} over {t['splits']} splits: **{t['verdict']}** (fault where p "
+              f"<= {ALPHA})")
+        result.update(jax=jax.name, jax_best=round(jax.best, 4),
+                      arms={k: {r.name: round(r.best, 4) for r in v} for k, v in arms.items()},
+                      **b, rank_sum=t, verdict=t["verdict"])
+    elif args.pair is None:
         jax, ports = load(args.jax[0]), [load(d) for d in args.port]
         print("\n".join(["## ON Seg_vd (x100) per validation", ""] + table(jax, ports) + [""]
                         + summary([jax] + ports)))

@@ -5,6 +5,7 @@
 // Replaces the JAX package's Pallas kernels cosa_tpu/kernels/flash.py:
 //   _fwd_kernel (via _attend_fwd / mha)  ->  attn_fwd_kernel<NWG, EXACT>
 //   _bwd_kernel (via _attend_bwd)        ->  attn_bwd_pre_kernel +
+//                                            attn_bwd_delta_kernel +
 //                                            attn_bwd_kernel +
 //                                            attn_bwd_post_kernel
 // and scripts/microbench_softmax.py's attend_variant (Pallas body
@@ -50,7 +51,16 @@
 // scale. The forward also stores the per-row log-sum-exp (base 2) so the
 // backward recomputes the probabilities without a second max pass. The
 // backward rounds dS to bf16 before the dq and dk products, as the TPU
-// kernel does.
+// kernel does, but forms dS = P (dP - delta) from the f32 P, with delta =
+// rowsum(P * dP) summed over the same f32 P, where the TPU kernel takes
+// the bf16 P and delta = rowsum(dO * O) of the bf16 output O. The sum of dS
+// over a query's keys is then zero to f32 rounding, as it is in exact
+// arithmetic: with the TPU's form it is not, and dq = dS K takes that
+// residue times the attention-weighted mean key. Where keys and values
+// share a large mean, as they do in a trained ViT, that term dominated dq
+// (relative error against float64 up to 0.14 at the states of a ShapesWSSS
+// training run on an H100, where the plain bf16 path reads up to 0.03;
+// cli/audit_attention.py).
 //
 // Layouts: qkv is the raw (B, N, 3, H, 64) bf16 projection (no fold copies);
 // o and dO are (B, N, H, 64) bf16; lse and delta are (B, H, N) f32; the
@@ -100,8 +110,10 @@
 //   S^T = K Q^T, P^T = exp2(S^T * c - lse), dV += P^T dO,
 //   dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q,
 //   dQ += dS K  (dS^T staged once in shared memory, read transposed).
-// A pre-kernel computes delta = rowsum(dO * O) and zeroes the scratch; a
-// post-kernel scales dq and writes it into qkv's layout as bf16.
+// Before it, a pre-kernel zeroes the dq scratch and a query-major delta
+// kernel computes delta = rowsum(P * dP) with 2 products per key tile (S =
+// Q K^T and dP = dO V^T, both K-major); a post-kernel scales dq and writes
+// it into qkv's layout as bf16.
 // Determinism: the key blocks' shares of dq meet in the scratch in an
 // order that varies from run to run. They are added as 64-bit fixed point
 // with 44 fraction bits (one bulk reduce-add, cp.reduce.async.bulk .add.u64,
@@ -151,10 +163,6 @@ __device__ __forceinline__ uint32_t exp2_bf16x2(float lo, float hi) {
   uint32_t y;
   asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
   return y;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -555,37 +563,113 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 2 ? 2 : 3)
   }
 }
 
-// ------------------------------------- backward, pre-kernel: delta, dq = 0
-// One 8-element chunk per thread; the 8 chunks of a row sit in 8
-// neighbouring lanes. Rows are (b, n, h) in token order.
+// ---------------------------------------- backward, pre-kernel: dq = 0
+// One 8-element chunk of a (b, n, h) row of the scratch per thread.
 __global__ void __launch_bounds__(256)
-    attn_bwd_pre_kernel(const bf16* __restrict__ out,
-                        const bf16* __restrict__ dout,
-                        float* __restrict__ delta,
-                        long long* __restrict__ dq_acc, int rows, int N,
-                        int H) {
+    attn_bwd_pre_kernel(long long* __restrict__ dq_acc, int rows) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = c >> 3, col = (c & 7) * 8;
-  const bool ok = row < rows;
-  float part = 0.f;
-  if (ok) {
-    const uint4 gv = *reinterpret_cast<const uint4*>(dout + (size_t)row * D + col);
-    const uint4 ov = *reinterpret_cast<const uint4*>(out + (size_t)row * D + col);
-    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
-    const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+  if (row >= rows) return;
+  longlong4* acc = reinterpret_cast<longlong4*>(dq_acc + (size_t)row * D + col);
+  acc[0] = make_longlong4(0, 0, 0, 0);
+  acc[1] = make_longlong4(0, 0, 0, 0);
+}
+
+// ------------------------------- backward, delta kernel: rowsum(P * dP)
+// One warpgroup per 64 queries streams the key and value tiles through
+// K1's ring: S = Q K^T and dP = dO V^T (dO and V read K-major, as Q and K
+// are), P = exp2(S * c - lse) in f32, delta += rowsum(P * dP) over the
+// keys below n_valid. One 64-key half at a time keeps two accumulators.
+struct DeltaSmem {
+  static constexpr int Q = 64 * ROW;  // the query tile; dO's likewise
+  static constexpr int KV = BKF * ROW;
+  static constexpr int BYTES = 2 * Q + STAGES * 2 * KV + 1024;
+};
+
+__global__ void __launch_bounds__(128, 2)
+    attn_bwd_delta_kernel(const bf16* __restrict__ qkv,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          float* __restrict__ delta, int N, int H,
+                          int n_valid, float qscale) {
+  constexpr int NT = 128;
+  typedef DeltaSmem L;
+  extern __shared__ uint8_t smem[];
+  const uint32_t sQ = align1k(smem_u32(smem));
+  const uint32_t sO = sQ + L::Q, sK0 = sO + L::Q, sV0 = sK0 + STAGES * L::KV;
+  const int tid = threadIdx.x, w = tid >> 5;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * 64;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const size_t tok = (size_t)3 * H * D;
+  const size_t otok = (size_t)H * D;
+  const bf16* qb = qkv + (size_t)b * N * tok + (size_t)h * D;
+  const bf16* kb = qb + (size_t)H * D;
+  const bf16* vb = qb + (size_t)2 * H * D;
+  const bf16* gb = dout + (size_t)b * N * otok + (size_t)h * D;
+  const int T = (n_valid + BKF - 1) / BKF;
+
+  load_tile<64, NT>(sQ, qb, tok, q0, N);
+  load_tile<64, NT>(sO, gb, otok, q0, N);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      part += __bfloat162float(ge[i]) * __bfloat162float(oe[i]);
-    longlong4* acc = reinterpret_cast<longlong4*>(dq_acc + (size_t)row * D + col);
-    acc[0] = make_longlong4(0, 0, 0, 0);
-    acc[1] = make_longlong4(0, 0, 0, 0);
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < T) {
+      load_tile<BKF, NT>(sK0 + st * L::KV, kb, tok, st * BKF, N);
+      load_tile<BKF, NT>(sV0 + st * L::KV, vb, tok, st * BKF, N);
+    }
+    cp_async_commit();
   }
-  part += __shfl_xor_sync(0xffffffffu, part, 1);
-  part += __shfl_xor_sync(0xffffffffu, part, 2);
-  part += __shfl_xor_sync(0xffffffffu, part, 4);
-  if (ok && (c & 7) == 0) {
-    const int h = row % H, bn = row / H, n = bn % N, b = bn / N;
-    delta[((size_t)b * H + h) * N + n] = part;
+  const int na = q0 + w * 16 + g, nb = na + 8;
+  const float l0 = na < N ? lse[(size_t)bh * N + na] : 0.f;
+  const float l1 = nb < N ? lse[(size_t)bh * N + nb] : 0.f;
+  float d0 = 0.f, d1 = 0.f;
+
+  for (int j = 0; j < T; ++j) {
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    const int nj = j + STAGES - 1;
+    if (nj < T) {
+      const int sl = nj % STAGES;
+      load_tile<BKF, NT>(sK0 + sl * L::KV, kb, tok, nj * BKF, N);
+      load_tile<BKF, NT>(sV0 + sl * L::KV, vb, tok, nj * BKF, N);
+    }
+    cp_async_commit();
+    const uint32_t sK = sK0 + (j % STAGES) * L::KV;
+    const uint32_t sV = sV0 + (j % STAGES) * L::KV;
+#pragma unroll
+    for (int hf = 0; hf < BKF / 64; ++hf) {
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wgmma_ss64<0, 0>(s, desc_k(sQ + 32 * k), desc_k(sK + hf * 64 * ROW + 32 * k), k);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wgmma_ss64<0, 0>(dp, desc_k(sO + 32 * k), desc_k(sV + hf * 64 * ROW + 32 * k), k);
+      wgmma_commit();
+      wgmma_wait<0>();
+      const int k0 = j * BKF + hf * 64;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (key < n_valid) {
+          if (i & 2)
+            d1 += exp2f(fmaf(s[i], qscale, -l1)) * dp[i];
+          else
+            d0 += exp2f(fmaf(s[i], qscale, -l0)) * dp[i];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 1);
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 2);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 2);
+  if (t == 0) {
+    if (na < N) delta[(size_t)bh * N + na] = d0;
+    if (nb < N) delta[(size_t)bh * N + nb] = d1;
   }
 }
 
@@ -714,7 +798,7 @@ __global__ void __launch_bounds__(NWG_B * 128, 1)
     wgmma_commit();
     wgmma_wait<0>();
 
-    // P^T (bf16-rounded, as the TPU kernel feeds it) and dS^T
+    // P^T (f32; the dV product takes its bf16 rounding) and dS^T
 #pragma unroll
     for (int jn = 0; jn < 8; ++jn) {
       const int c = 8 * jn + 2 * t;
@@ -725,7 +809,7 @@ __global__ void __launch_bounds__(NWG_B * 128, 1)
         const int i = 4 * jn + e;
         const float l = (e & 1) ? lq.y : lq.x, dl = (e & 1) ? dq2.y : dq2.x;
         const bool ok = (e & 2) ? ok1 : ok0;
-        const float p = ok ? bf16_round(exp2f(fmaf(st[i], qscale, -l))) : 0.f;
+        const float p = ok ? exp2f(fmaf(st[i], qscale, -l)) : 0.f;
         st[i] = p;
         dpt[i] = p * (dpt[i] - dl);
       }
@@ -874,25 +958,30 @@ int cosa_attn_fwd_variant(const void* qkv, void* out, int B, int N, int H,
 
 // Gradient of cosa_attn_fwd: dout (B, N, H, 64) -> dqkv (B, N, 3, H, 64).
 // delta (B, H, N) f32 and dq_acc (B, N, H, 64) int64 are scratch.
-int cosa_attn_bwd(const void* qkv, const void* out, const void* dout,
-                  const void* lse, void* delta, void* dq_acc, void* dqkv, int B,
-                  int N, int H, int n_valid, float scale, cudaStream_t stream) {
+int cosa_attn_bwd(const void* qkv, const void* dout, const void* lse,
+                  void* delta, void* dq_acc, void* dqkv, int B, int N, int H,
+                  int n_valid, float scale, cudaStream_t stream) {
   static const cudaError_t set = allow_smem(attn_bwd_kernel, BwdSmem::BYTES);
   if (set != cudaSuccess) return (int)set;
+  static const cudaError_t set_d =
+      allow_smem(attn_bwd_delta_kernel, DeltaSmem::BYTES);
+  if (set_d != cudaSuccess) return (int)set_d;
   const int rows = B * N * H;
   const int blocks = (rows * 8 + 255) / 256;
-  attn_bwd_pre_kernel<<<blocks, 256, 0, stream>>>(
-      static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
-      static_cast<float*>(delta), static_cast<long long*>(dq_acc), rows, N, H);
+  long long* acc = static_cast<long long*>(dq_acc);
+  attn_bwd_pre_kernel<<<blocks, 256, 0, stream>>>(acc, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const float qscale = scale * 1.4426950408889634f;
   const bf16* q = static_cast<const bf16*>(qkv);
   const bf16* g = static_cast<const bf16*>(dout);
   const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  long long* acc = static_cast<long long*>(dq_acc);
+  float* dl = static_cast<float*>(delta);
   bf16* dx = static_cast<bf16*>(dqkv);
+  attn_bwd_delta_kernel<<<dim3((N + 63) / 64, B * H), 128, DeltaSmem::BYTES,
+                          stream>>>(q, g, l, dl, N, H, n_valid, qscale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + NWG_B * 64 - 1) / (NWG_B * 64), B * H);
   attn_bwd_kernel<<<grid, NWG_B * 128, BwdSmem::BYTES, stream>>>(
       q, g, l, dl, acc, dx, N, H, n_valid, qscale, scale);

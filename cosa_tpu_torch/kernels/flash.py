@@ -39,7 +39,7 @@ def _lib():
         lib.cosa_attn_fwd.argtypes = [_VP, _VP, _VP] + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, _VP]
         lib.cosa_attn_fwd.restype = ctypes.c_int
-        lib.cosa_attn_bwd.argtypes = [_VP] * 7 + [ctypes.c_int] * 4 + [
+        lib.cosa_attn_bwd.argtypes = [_VP] * 6 + [ctypes.c_int] * 4 + [
             ctypes.c_float, _VP]
         lib.cosa_attn_bwd.restype = ctypes.c_int
         _TYPED.append(lib)
@@ -66,6 +66,25 @@ def plain_attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
     x = qkv.reshape(b, n, 3, num_heads, c3 // (3 * num_heads))
     o = plain_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2], scale, n_valid)
     return o.reshape(b, n, c3 // 3)
+
+
+def f64_attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
+                      n_valid: Optional[int] = None) -> torch.Tensor:
+    """:func:`plain_attention_qkv` in float64 throughout, returned in
+    float64 and differentiable: the reference that K1/K2 and the plain
+    path are held to (chip_smoke.py, cli/audit_attention.py). One batch
+    row at a time, so that one row's (H, N, N) scores are the largest
+    temporary."""
+    b, n, c3 = qkv.shape
+    x = qkv.double().reshape(b, n, 3, num_heads, c3 // (3 * num_heads))
+    rows = []
+    for i in range(b):
+        xi = x[i:i + 1]
+        s = torch.einsum("bqhd,bkhd->bhqk", xi[:, :, 0] * scale, xi[:, :, 1])
+        if n_valid is not None and n_valid < n:
+            s = s.masked_fill(torch.arange(n, device=s.device) >= n_valid, float("-inf"))
+        rows.append(torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), xi[:, :, 2]))
+    return torch.cat(rows).reshape(b, n, c3 // 3)
 
 
 def block_rows(n: int) -> int:
@@ -120,15 +139,16 @@ def attn_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
     return out, lse
 
 
-def attn_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
-             lse: torch.Tensor, num_heads: int, scale: float,
+def attn_bwd(qkv: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+             num_heads: int, scale: float,
              n_valid: Optional[int] = None) -> torch.Tensor:
     """K2. Gradient of :func:`attn_fwd` with respect to qkv, in qkv's
-    layout (B, N, 3*H*64) bf16. Deterministic: dq's partial sums are
-    added as 64-bit fixed point, in any order to the same result."""
+    layout (B, N, 3*H*64) bf16, from qkv, the output's cotangent and K1's
+    log-sum-exp (delta = rowsum(P * dP) is recomputed from f32 P, not read
+    off the bf16 output). Deterministic: dq's partial sums are added as
+    64-bit fixed point, in any order to the same result."""
     b, n, nv = _dims(qkv, num_heads, n_valid)
     _check("qkv", qkv, qkv.shape)
-    _check("out", out, (b, n, num_heads * HEAD_DIM))
     _check("dout", dout, (b, n, num_heads * HEAD_DIM))
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, num_heads, n) \
             or not lse.is_contiguous():
@@ -139,7 +159,7 @@ def attn_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
     dq_acc = torch.empty((b, n, num_heads, HEAD_DIM), dtype=torch.int64,
                          device=qkv.device)
     err = _lib().cosa_attn_bwd(
-        qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq_acc.data_ptr(), dqkv.data_ptr(), b, n, num_heads,
         nv, float(scale),
         torch.cuda.current_stream(qkv.device).cuda_stream,
@@ -156,15 +176,15 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, num_heads, scale, n_valid):
         out, lse = attn_fwd(qkv, num_heads, scale, n_valid)
-        ctx.save_for_backward(qkv, out, lse)
+        ctx.save_for_backward(qkv, lse)
         ctx.cfg = (num_heads, scale, n_valid)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, out, lse = ctx.saved_tensors
+        qkv, lse = ctx.saved_tensors
         num_heads, scale, n_valid = ctx.cfg
-        dqkv = attn_bwd(qkv, out, dout.contiguous(), lse, num_heads, scale, n_valid)
+        dqkv = attn_bwd(qkv, dout.contiguous(), lse, num_heads, scale, n_valid)
         return dqkv, None, None, None
 
 
