@@ -1,0 +1,26 @@
+"""Milliseconds a profiled validation batch in which the card idles while
+the host scores the batch: its confusion matrices, the fetch of its
+probabilities and the per-image APs (``eval/engine.py``): the traced run's
+idle gaps under ``eval_score`` and ``eval_ap``, over the batches profiled
+(``trace_calls`` x ``trace_images`` / ``eval_batch``).
+
+Read under the tracer, which slows the host, so it is an upper bound on the
+untraced gap; the tracer and the reduction stay the same, so it is
+comparable from commit to commit. A span that is not among the reduction's ten
+largest gaps reads 0; a trace with no device events, or of a program that
+opens none of these spans (no gap is named by one), reads nothing."""
+
+SOURCE = "program_span"
+LAYER = "eval engine"
+NAMES = ("eval_score", "eval_ap")
+# every span of the engine and the TTA
+PORT = ("eval_load", "eval_prep", "eval_canvas", "eval_score", "eval_ap", "eval_dump",
+        "tta_forward", "tta_fuse")
+
+
+def read(r):
+    gaps = dict(r.trace.get("idle_gaps", []))
+    if "busy_s" not in r.trace or not any(k in gaps for k in PORT):
+        return None
+    batches = r.trace["units"] * r.traffic["trace_images"] / r.config["config"]["eval_batch"]
+    return sum(gaps.get(k, 0.0) for k in NAMES) * 1e3 / batches

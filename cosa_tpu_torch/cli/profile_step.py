@@ -71,7 +71,7 @@ from cosa_tpu_torch.train.state import create_train_state, use_gmm_aux
 from cosa_tpu_torch.train.step import build_train_step
 from cosa_tpu_torch.utils.device import resolve_device
 
-# the step's record_function spans (train/step.py), in the order it runs them
+# the step's spans (train/step.py, utils/trace.py), in the order it runs them
 SPANS = ("teacher_tta", "gmm", "pseudo_labels", "student_forward", "losses", "energy",
          "backward", "optimizer", "ema")
 # the trace's device activity

@@ -64,6 +64,7 @@ from cosa_tpu_torch.parallel.mesh import Mesh
 from cosa_tpu_torch.parallel.tensor import all_reduce_sum_
 from cosa_tpu_torch.utils.device import resolve_device
 from cosa_tpu_torch.utils.metrics import compute_mAP
+from cosa_tpu_torch.utils.trace import span
 from cosa_tpu_torch.utils.visualize import dump_eval_visuals
 
 SUBSET_SEED = 20240817  # the JAX package's seeded max_images subset (engine.py:276)
@@ -133,26 +134,29 @@ def evaluate(
     hists = torch.zeros((4 + 2 * len(thresholds) + int(getcrf), n, n),
                         dtype=torch.int64, device=dev)
     aps: List[Tuple[int, List[float], List[float]]] = []  # (image, APs, aux APs)
-    crf_s = 0.0
+    crf_times = []
     t0 = time.time()
     was_training = model.training
     model.eval()
     try:
         with torch.no_grad():
             for c0 in range(0, len(idxs), bsz):
-                samples = [val_ds[i] for i in idxs[c0:c0 + bsz]]
-                h_b, probs, probs_aux, dt, maps = _eval_batch(
+                with span("eval_load"):
+                    samples = [val_ds[i] for i in idxs[c0:c0 + bsz]]
+                h_b, probs, probs_aux, crf_t, maps = _eval_batch(
                     cfg, model, samples, pad, thresholds, getcrf, dev,
                     return_maps=bool(save_dir or save_rawcam_dir))
                 if maps is not None and writes:
-                    _dump_maps(cfg, samples, maps, save_dir, save_rawcam_dir)
+                    with span("eval_dump"):
+                        _dump_maps(cfg, samples, maps, save_dir, save_rawcam_dir)
                 hists += h_b
-                crf_s += dt
-                for bi, (i, smp) in enumerate(zip(idxs[c0:c0 + bsz], samples)):
-                    cl = smp["cls_label"]
-                    if cl.sum() > 0:
-                        aps.append((i, compute_mAP(cl[None], probs[bi:bi + 1]),
-                                    compute_mAP(cl[None], probs_aux[bi:bi + 1])))
+                crf_times.append(crf_t)
+                with span("eval_ap"):
+                    for bi, (i, smp) in enumerate(zip(idxs[c0:c0 + bsz], samples)):
+                        cl = smp["cls_label"]
+                        if cl.sum() > 0:
+                            aps.append((i, compute_mAP(cl[None], probs[bi:bi + 1]),
+                                        compute_mAP(cl[None], probs_aux[bi:bi + 1])))
     finally:
         model.train(was_training)
     all_reduce_sum_(hists, mesh.dp_group)
@@ -163,6 +167,8 @@ def evaluate(
     aps_aux = [a for _, _, ap in aps for a in ap]
     aps = [a for _, ap, _ in aps for a in ap]
     hist = hists.cpu().numpy()
+    crf_s = sum(t if isinstance(t, float) else t[0].elapsed_time(t[1]) / 1e3
+                for t in crf_times)
     out = {
         "CAM": scores_from_hist(hist[0]),
         "aux_CAM": scores_from_hist(hist[1]),
@@ -203,55 +209,70 @@ def _dump_maps(cfg, samples, maps, save_dir, rawcam_dir) -> None:
 
 def _eval_batch(cfg, model, samples, pad, thresholds, getcrf, dev, return_maps=False):
     """One batch: its stacked confusion matrices on the device, the
-    image-level probabilities of both heads on the host, the seconds the
-    CRF took, and (with ``return_maps``, else None) the canvas maps on the
-    device: ``seg_vd`` (B, P, P) validated seg labels, ``r_cam`` (B, P, P,
-    C-1) CAMs and, with ``getcrf``, ``crf`` (B, P, P) the refined labels
-    (the host backends' single image at its top left, 0 elsewhere)."""
+    image-level probabilities of both heads on the host, the time the CRF
+    took (seconds on the host's clock; on the card's ``device`` backend a
+    pair of CUDA events, which :func:`evaluate` reads when the pass ends),
+    and (with ``return_maps``, else None) the canvas maps on the device:
+    ``seg_vd`` (B, P, P) validated seg labels, ``r_cam`` (B, P, P, C-1)
+    CAMs and, with ``getcrf``, ``crf`` (B, P, P) the refined labels (the
+    host backends' single image at its top left, 0 elsewhere)."""
     n = cfg.num_classes
-    sizes = [smp["image"].shape[:2] for smp in samples]
-    biggest = max(max(hw) for hw in sizes)
-    # images larger than the canvas: the JAX package's next multiple of 128
-    pad = pad if biggest <= pad else -(-biggest // 128) * 128
-    s = cfg.crop_size
-    imgs = torch.cat([
-        resize_bilinear(normalize(torch.from_numpy(smp["image"]).to(dev)[None]), (s, s))
-        for smp in samples])
-    cls = torch.from_numpy(np.stack([smp["cls_label"] for smp in samples])).to(
-        dev, torch.float32)
+    with span("eval_prep"):
+        sizes = [smp["image"].shape[:2] for smp in samples]
+        biggest = max(max(hw) for hw in sizes)
+        # images larger than the canvas: the JAX package's next multiple of 128
+        pad = pad if biggest <= pad else -(-biggest // 128) * 128
+        s = cfg.crop_size
+        imgs = torch.cat([
+            resize_bilinear(normalize(torch.from_numpy(smp["image"]).to(dev)[None]), (s, s))
+            for smp in samples])
+        cls = torch.from_numpy(np.stack([smp["cls_label"] for smp in samples])).to(
+            dev, torch.float32)
+        gt = torch.full((len(samples), pad, pad), 255, dtype=torch.int64, device=dev)
+        for i, (h, w) in enumerate(sizes):
+            gt[i, :h, :w] = torch.from_numpy(samples[i]["label"].astype(np.int64)).to(dev)
     cam, cam_aux, seg, cls_f, cls_a = multi_scale_camseg(
         model, imgs, cfg.eval_scales, getcls=True)
-    r_cam, r_cam_aux, r_seg = (_canvas(x, sizes, pad) for x in (cam, cam_aux, seg))
-    gt = torch.full((len(samples), pad, pad), 255, dtype=torch.int64, device=dev)
-    for i, (h, w) in enumerate(sizes):
-        gt[i, :h, :w] = torch.from_numpy(samples[i]["label"].astype(np.int64)).to(dev)
+    with span("eval_canvas"):
+        r_cam, r_cam_aux, r_seg = (_canvas(x, sizes, pad) for x in (cam, cam_aux, seg))
 
-    seg_vd = torch.argmax(seg_validation(r_seg, cls), dim=-1)
-    hs = [
-        torch_hist(gt, cam_to_label(r_cam, cls, bkg_thre=cfg.bkg_thre), n),
-        torch_hist(gt, cam_to_label(r_cam_aux, cls, bkg_thre=cfg.bkg_thre), n),
-        torch_hist(gt, torch.argmax(r_seg, dim=-1), n),
-        torch_hist(gt, seg_vd, n),
-    ]
-    if thresholds:
-        # the JAX package's box: rows and columns up to h - 1, w - 1
-        box = torch.tensor([[0, h - 1, 0, w - 1] for h, w in sizes], device=dev)
-        valid_cams = (cam_validation(r_cam, cls), cam_validation(r_cam_aux, cls))
-        for thre in thresholds:
-            for vc in valid_cams:
-                lab = cam2mask(img_box=box, cams=vc, cls_labels=cls,
-                               threshold_high=1.0 - thre, threshold_low=thre,
-                               downscale=cfg.par_downscale,
-                               ignore_index=cfg.ignore_index)
-                # pseudo-score convention (utils/evaluation.py:41-44)
-                ign = lab == 255
-                hs.append(torch_hist(torch.where(ign, 255, gt),
-                                     torch.where(ign, 0, lab), n))
-    crf_s = 0.0
+    with span("eval_score"):
+        seg_vd = torch.argmax(seg_validation(r_seg, cls), dim=-1)
+        hs = [
+            torch_hist(gt, cam_to_label(r_cam, cls, bkg_thre=cfg.bkg_thre), n),
+            torch_hist(gt, cam_to_label(r_cam_aux, cls, bkg_thre=cfg.bkg_thre), n),
+            torch_hist(gt, torch.argmax(r_seg, dim=-1), n),
+            torch_hist(gt, seg_vd, n),
+        ]
+        if thresholds:
+            # the JAX package's box: rows and columns up to h - 1, w - 1
+            box = torch.tensor([[0, h - 1, 0, w - 1] for h, w in sizes], device=dev)
+            valid_cams = (cam_validation(r_cam, cls), cam_validation(r_cam_aux, cls))
+            for thre in thresholds:
+                for vc in valid_cams:
+                    lab = cam2mask(img_box=box, cams=vc, cls_labels=cls,
+                                   threshold_high=1.0 - thre, threshold_low=thre,
+                                   downscale=cfg.par_downscale,
+                                   ignore_index=cfg.ignore_index)
+                    # pseudo-score convention (utils/evaluation.py:41-44)
+                    ign = lab == 255
+                    hs.append(torch_hist(torch.where(ign, 255, gt),
+                                         torch.where(ign, 0, lab), n))
+        probs = torch.sigmoid(torch.stack([cls_f, cls_a])).cpu().numpy()
+    crf_t = 0.0
     maps = dict(seg_vd=seg_vd, r_cam=r_cam) if return_maps else None
     if getcrf:
-        _sync(dev)
-        t = time.time()
+        # the device backend is timed by CUDA events, which drops the two
+        # explicit syncs; the host still waits for the CRF, in its hist's
+        # bincount (which reads the max on the host)
+        events = cfg.crf_backend == "device" and dev.type == "cuda"
+        if events:
+            crf_t = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+            crf_t[0].record()
+        else:
+            _sync(dev)
+            t = time.time()
         vd_probs = torch.softmax(seg_validation(r_seg, cls), dim=-1)
         if cfg.crf_backend == "device":
             img_c = torch.zeros((len(samples), pad, pad, 3), dtype=torch.float32, device=dev)
@@ -267,9 +288,11 @@ def _eval_batch(cfg, model, samples, pad, thresholds, getcrf, dev, return_maps=F
             hs.append(torch_hist(gt[0, :h, :w], lab, n))
             crf = torch.zeros_like(seg_vd, dtype=lab.dtype)
             crf[0, :h, :w] = lab
-        _sync(dev)
-        crf_s = time.time() - t
+        if events:
+            crf_t[1].record()
+        else:
+            _sync(dev)
+            crf_t = time.time() - t
         if maps is not None:
             maps["crf"] = crf
-    probs = torch.sigmoid(torch.stack([cls_f, cls_a])).cpu().numpy()
-    return torch.stack(hs), probs[0], probs[1], crf_s, maps
+    return torch.stack(hs), probs[0], probs[1], crf_t, maps

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from cosa_tpu_torch.ops.image import hflip
 from cosa_tpu_torch.ops.resize import resize_bilinear
+from cosa_tpu_torch.utils.trace import span
 
 NEG_INF = -1e5  # reference uses -1e5 for invalid-class logits (seg_helper.py:565)
 
@@ -64,7 +65,9 @@ def multi_scale_camseg(
     the model output dict. CAMs fuse flip-wise by max, then scale-wise by
     ReLU-sum and min-max; seg logits sum in f32. Reference quirk kept:
     ``cam_aux`` is the LAST scale's flip-max only. CAM arithmetic runs in
-    ``cam_dtype`` (bf16 under mixed precision)."""
+    ``cam_dtype`` (bf16 under mixed precision). Each scale's forward runs
+    under the span ``tta_forward``, the rest under ``tta_fuse``
+    (``utils/trace.py``)."""
     b, h, w, _ = imgs.shape
     assert 1.0 in tuple(scales), "scale 1.0 must be in scales"
     cam_sum = 0.0
@@ -73,39 +76,43 @@ def multi_scale_camseg(
     cls_sum = 0.0
     cls_aux_sum = 0.0
     for i, s in enumerate(scales):
-        if s == 1.0:
-            xcat = torch.cat([imgs, hflip(imgs)], dim=0)
-        else:
-            sz = scale_size(h, w, s)
-            xcat = torch.cat(
-                [resize_bilinear(imgs, sz), resize_bilinear(imgs, sz, flip_w=True)],
-                dim=0,
+        with span("tta_fuse"):
+            if s == 1.0:
+                xcat = torch.cat([imgs, hflip(imgs)], dim=0)
+            else:
+                sz = scale_size(h, w, s)
+                xcat = torch.cat(
+                    [resize_bilinear(imgs, sz), resize_bilinear(imgs, sz, flip_w=True)],
+                    dim=0,
+                )
+        with span("tta_forward"):
+            out = forward(xcat)
+        with span("tta_fuse"):
+            cam_raw = out["cam"].to(cam_dtype)
+            cam = torch.maximum(
+                resize_bilinear(cam_raw[:b], (h, w)),
+                resize_bilinear(cam_raw[b:], (h, w), flip_w=True),
             )
-        out = forward(xcat)
-        cam_raw = out["cam"].to(cam_dtype)
-        cam = torch.maximum(
-            resize_bilinear(cam_raw[:b], (h, w)),
-            resize_bilinear(cam_raw[b:], (h, w), flip_w=True),
-        )
-        seg_raw = out["seg"].to(torch.float32)
-        seg = resize_bilinear(seg_raw[:b], (h, w)) + resize_bilinear(
-            seg_raw[b:], (h, w), flip_w=True
-        )
-        cam_sum = cam_sum + F.relu(cam)
-        seg_sum = seg_sum + seg
-        if i == len(scales) - 1:
-            aux_raw = out["cam_aux"].to(cam_dtype)
-            cam_aux_last = F.relu(torch.maximum(
-                resize_bilinear(aux_raw[:b], (h, w)),
-                resize_bilinear(aux_raw[b:], (h, w), flip_w=True),
-            ))
-        if getcls:
-            c = out["cls"].to(torch.float32)
-            ca = out["cls_aux"].to(torch.float32)
-            cls_sum = cls_sum + c[:b] + c[b:]
-            cls_aux_sum = cls_aux_sum + ca[:b] + ca[b:]
-    cam = minmax_norm(cam_sum).to(torch.float32)
-    cam_aux = minmax_norm(cam_aux_last).to(torch.float32)
+            seg_raw = out["seg"].to(torch.float32)
+            seg = resize_bilinear(seg_raw[:b], (h, w)) + resize_bilinear(
+                seg_raw[b:], (h, w), flip_w=True
+            )
+            cam_sum = cam_sum + F.relu(cam)
+            seg_sum = seg_sum + seg
+            if i == len(scales) - 1:
+                aux_raw = out["cam_aux"].to(cam_dtype)
+                cam_aux_last = F.relu(torch.maximum(
+                    resize_bilinear(aux_raw[:b], (h, w)),
+                    resize_bilinear(aux_raw[b:], (h, w), flip_w=True),
+                ))
+            if getcls:
+                c = out["cls"].to(torch.float32)
+                ca = out["cls_aux"].to(torch.float32)
+                cls_sum = cls_sum + c[:b] + c[b:]
+                cls_aux_sum = cls_aux_sum + ca[:b] + ca[b:]
+    with span("tta_fuse"):
+        cam = minmax_norm(cam_sum).to(torch.float32)
+        cam_aux = minmax_norm(cam_aux_last).to(torch.float32)
     if getcls:
         return cam, cam_aux, seg_sum, cls_sum, cls_aux_sum
     return cam, cam_aux, seg_sum

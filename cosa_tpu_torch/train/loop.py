@@ -9,7 +9,9 @@ checkpoints and logs are written by rank 0.
 
   * the step loop with windowed ``metrics.jsonl`` / ``print.out`` logging;
     metrics stay on the device between log points and cross to the host in
-    one transfer per window;
+    one transfer per window; ``data_wait_ms`` is the host's mean ms a step
+    in ``next(loader)`` over the window (spans ``loader_wait`` and
+    ``to_device``, ``utils/trace.py``);
   * every ``eval_iters`` steps: a validation of the student and the teacher
     (``log_val.txt``; best-seg / best-cam selection across both, reference
     main.py:348-374) and a full-state checkpoint;
@@ -24,7 +26,7 @@ checkpoints and logs are written by rank 0.
     and no collective (which a failed rank would never join) is needed;
   * with ``profile_dir``, rank 0's run is traced by ``torch.profiler``
     into ``{profile_dir}/trace_rank0.json`` (a chrome trace holding the
-    step's ``record_function`` spans);
+    port's spans, ``utils/trace.py``);
   * :func:`finaleval`: the best-seg weights (or a reference-key ``.pth``)
     scored on the full val split with the DenseCRF, or, with
     ``eval_split="test"``, the eval-server submission PNGs of the test split.
@@ -65,6 +67,7 @@ from cosa_tpu_torch.utils.logging import (
     format_iou_table,
 )
 from cosa_tpu_torch.utils.metrics import compute_mAP
+from cosa_tpu_torch.utils.trace import span
 
 LOSS_KEYS = ("overall_loss", "cls_loss", "cls_aux_loss",
              "seg_loss", "cam_loss", "reg_loss")
@@ -190,9 +193,14 @@ def _train_body(cfg, state, step_fn, loader, val_ds, writer, dev, out_dir,
     results: Dict = {}
     best_seg, best_cam = -1.0, -1.0
     t_log = time.time()
+    data_wait = 0.0  # host seconds in next(loader) over the log window
     for n_iter in range(start_step, total):
-        local_batch = next(loader)
-        batch = to_device(local_batch, dev)
+        t_wait = time.perf_counter()
+        with span("loader_wait"):
+            local_batch = next(loader)
+        data_wait += time.perf_counter() - t_wait
+        with span("to_device"):
+            batch = to_device(local_batch, dev)
         metrics = step_fn(state, batch)
         pending.append(metrics)
         if (n_iter + 1) % cfg.log_iters == 0:
@@ -225,6 +233,7 @@ def _train_body(cfg, state, step_fn, loader, val_ds, writer, dev, out_dir,
                 iter=n_iter + 1,
                 itertime=itertime,
                 imgs_per_sec=global_batch / itertime,
+                data_wait_ms=data_wait / nwin * 1e3,
                 lr=last["lr"],
                 thre_low=round(thre_low, 4),
                 thre_high=round(thre_high, 4),
@@ -232,11 +241,13 @@ def _train_body(cfg, state, step_fn, loader, val_ds, writer, dev, out_dir,
                 cls_aux_acc=round(cls_aux_acc, 3),
                 **{k: float(meter.pop(k)) for k in LOSS_KEYS},
             )
+            data_wait = 0.0
             records.append(rec)
             writer.log({"kind": "train", **rec})
             writer.print(
                 f"Iter: {rec['iter']}; Elapsed: {elapsed}; ETA: {eta}; "
-                f"Itertime: {rec['itertime']:.3f}s ({rec['imgs_per_sec']:.2f} img/s); "
+                f"Itertime: {rec['itertime']:.3f}s ({rec['imgs_per_sec']:.2f} img/s, "
+                f"data wait {rec['data_wait_ms']:.2f} ms); "
                 f"LR: {rec['lr']:.3e};\n overall_loss: {rec['overall_loss']:.4f}, "
                 f"cls_loss: {rec['cls_loss']:.4f}, cls_acc: {rec['cls_acc']:.3f}, "
                 f"cls_aux_loss: {rec['cls_aux_loss']:.4f}, "

@@ -12,13 +12,13 @@ itself covering the reference's main.py:106-252):
   EMA teacher update       (f32, every parameter)
 
 Eager PyTorch updates the state in place: the step returns only its
-metrics. Each phase runs under a ``torch.profiler.record_function`` span
-(teacher_tta, gmm, pseudo_labels, student_forward, losses, energy,
-backward, optimizer, ema), which ``torch.profiler`` reads and which cost next to
-nothing without one. Loss weighting (main.py:240-243): the
-cls losses are always on; seg/cam/reg are scaled by ``warmup_gate_floor``
-while step <= warmup_iters. The step carries its parts as ``.pieces``
-(:class:`StepPieces`), which cli/profile_step.py times one by one.
+metrics. Each phase runs under a span (``utils/trace.py``: teacher_tta, gmm,
+pseudo_labels, student_forward, losses, energy, backward, optimizer, ema),
+which ``torch.profiler`` reads and which costs next to nothing without one.
+Loss weighting (main.py:240-243): the cls losses are always on; seg/cam/reg
+are scaled by ``warmup_gate_floor`` while step <= warmup_iters. The step
+carries its parts as ``.pieces`` (:class:`StepPieces`), which
+cli/profile_step.py times one by one.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from cosa_tpu_torch.models.network import require_cosa_interface
 from cosa_tpu_torch.objectives.energy import get_energy_loss
@@ -53,6 +52,7 @@ from cosa_tpu_torch.ops.resize import resize_bilinear
 from cosa_tpu_torch.parallel.mesh import Mesh
 from cosa_tpu_torch.parallel.tensor import all_cat, coalesced_, group_size
 from cosa_tpu_torch.train.state import GMMState, TrainState, ema_update, use_gmm_aux
+from cosa_tpu_torch.utils.trace import span
 
 
 class StepPieces(NamedTuple):
@@ -173,7 +173,7 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
             return state.teacher(x, quant=cfg.teacher_int8 and min(
                 x.shape[1], x.shape[2]) >= cfg.teacher_int8_min_size)
 
-        with torch.no_grad(), record_function("teacher_tta"):
+        with torch.no_grad(), span("teacher_tta"):
             return multi_scale_camseg(teacher_fwd, wimg, cfg.pseudo_scales, cam_dtype=act_dtype)
 
     def pseudo_targets(state: TrainState, tta, simg, cls_label, img_box) -> Dict:
@@ -186,7 +186,7 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
             valid_cam = cam_validation(cam_src, cls_label)
             valid_cam_aux = cam_validation(cam_aux_ps, cls_label)
             if gmm_main or gmm_aux:
-                with record_function("gmm"):
+                with span("gmm"):
                     _gmm_update(cfg, state.gmm, valid_cam, valid_cam_aux, dp_group)
             g = state.gmm
             # the logged pair is a 0-d tensor on the device either way
@@ -195,7 +195,7 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
                 for v in (cfg.low_thre, cfg.high_thre))
             thre_aux = ((g.ema_low_aux, g.ema_high_aux) if gmm_aux
                         else (cfg.low_thre_aux, cfg.high_thre_aux))
-            with record_function("pseudo_labels"):
+            with span("pseudo_labels"):
                 mask_kwargs = dict(img_box=img_box, cls_labels=cls_label,
                                    downscale=cfg.par_downscale,
                                    ignore_index=cfg.ignore_index, refine_fn=refine_fn,
@@ -225,9 +225,9 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
         if cfg.model == "swinend2end":
             student_kw = dict(train=True, generator=drop_path_generator(
                 cfg.seed, state.step, simg.device))
-        with record_function("student_forward"):
+        with span("student_forward"):
             out = state.student(simg, detach=cfg.detach, **student_kw)
-        with record_function("losses"):
+        with span("losses"):
             cls_loss = multilabel_soft_margin(out["cls"], cls_label)
             cls_aux_loss = multilabel_soft_margin(out["cls_aux"], cls_label)
             seg_pred = resize_bilinear(out["seg"], (h, w))
@@ -242,7 +242,7 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
             if cfg.aux_seg2cam:
                 cl_aux = camloss_fn(out["cam_aux"], targets["valid_seg_ps"])
                 cl = (1 - cfg.aux_seg2cam_alpha) * cl + cfg.aux_seg2cam_alpha * cl_aux
-        with record_function("energy"):
+        with span("energy"):
             reg = get_energy_loss(
                 simg, seg_pred, refine_mask, img_box,
                 weight=cfg.energy_weight,
@@ -263,16 +263,16 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
                     seg_loss=sl, cam_loss=cl, reg_loss=reg, out=out)
 
     def backward(state: TrainState, total: torch.Tensor) -> None:
-        with record_function("backward"):
+        with span("backward"):
             state.optimizer.zero_grad()
             total.backward()
             average_gradients_(state.student.parameters(), dp_group)
 
     def update(state: TrainState) -> None:
         """The optimizer's step on the student's gradients, then the EMA."""
-        with record_function("optimizer"):
+        with span("optimizer"):
             state.optimizer.step(state.step)
-        with record_function("ema"):
+        with span("ema"):
             ema_update(state.teacher, state.student, cfg.momentum)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
