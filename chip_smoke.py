@@ -17,7 +17,9 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      distilled DeiT's and the pseudo pipeline's included, summed per
      training step, eval batch and pseudo-labelled image; K2 at the
      default's and the distilled student's N; K4 beside K1 at the same
-     shape and block size; K3 beside a fill of its output);
+     shape and block size; K3 beside a fill of its output; K5, the TTA
+     fuse, at the two training cells' and the validation's shapes, one
+     launch per multi_scale_camseg call);
   4. train 6 steps of the default VOC configuration (ViT-B/16, crop 448,
      batch 4, bf16, RFF energy) on synthetic data through
      cosa_tpu_torch.train.loop.train, from a seeded random init (no weights
@@ -588,6 +590,9 @@ def phase_kernels():
         library_ms=None,
     ))
 
+    # ---- K5, the TTA fuse, at the three cells' shapes
+    _k5_tta_fuse(rows, failures)
+
     # ---- K4, the two softmax variants, at the microbenchmark's B*H = 96,
     # each beside K1 at the same shape and block size
     bv = 8
@@ -645,6 +650,81 @@ def phase_kernels():
         "(bf16), < 1e-5 (f32); K4 max err <= 1e-2 and cos vs K1 >= 0.9999 "
         f"({json.dumps(k4)})")
     return rows
+
+
+# K5's shapes at crop 448, one fuse a call: (what, B, CAM channels, CAM
+# type, scales), the seg logits one channel more
+K5_SHAPES = (
+    ("voc train", 4, 20, "bf16", (1.0, 0.5, 1.5)),
+    ("coco train", 8, 80, "bf16", (1.0, 0.5, 1.5)),
+    ("voc val", 8, 20, "f32", (1.0, 0.5, 1.5, 0.75, 1.25)),
+)
+
+
+def _k5_tta_fuse(rows: list, failures: list) -> None:
+    """K5 against ``plain_tta_fuse`` at the cells' shapes (the normalized
+    CAMs within 4e-3 in bf16 and 1e-6 in f32, the seg sums within rtol 1e-6
+    and atol 1e-4: tests/test_torch_cuda.py gives the reasons), that
+    ``multi_scale_camseg`` on a stand-in forward goes through it, and kernel,
+    plain and bound times. Its launches are read from the main path's runs
+    (``main``). The
+    bound counts the per-scale maps read once and the three outputs written
+    once; the kernels also write and read the CAM sums between their passes."""
+    import torch
+
+    from cosa_tpu_torch.kernels import tta_fuse as K
+    from cosa_tpu_torch.objectives.pseudo import multi_scale_camseg
+
+    crop = 448
+    for what, b, n_cam, dt, scales in K5_SHAPES:
+        cam_dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        g = torch.Generator(device="cuda").manual_seed(b * n_cam + len(scales))
+        grids = [int(s * crop) // 16 for s in scales]
+        maps = [{k: torch.randn((2 * b, n, n, n_cam + (k == "seg")), generator=g,
+                                device="cuda") * 4 for k in ("cam", "cam_aux", "seg")}
+                for n in grids]
+        cams, segs, aux = [m["cam"] for m in maps], [m["seg"] for m in maps], maps[-1]["cam_aux"]
+        got = K.tta_fuse(cams, segs, aux, (crop, crop), cam_dtype)
+        want = K.plain_tta_fuse(cams, segs, aux, (crop, crop), cam_dtype)
+        torch.cuda.synchronize()
+        errs = [float((x - r).abs().max()) for x, r in zip(got, want)]
+        differ = [int((x != r).sum()) for x, r in zip(got, want)]
+        seg_rel = float(((got[2] - want[2]).abs() / want[2].abs().clamp_min(1e-4)).max())
+        feed = iter(maps)
+        before = K.LAUNCHES["tta_fuse"]
+        outs = multi_scale_camseg(lambda x: next(feed), torch.zeros((b, crop, crop, 3),
+                                  device="cuda"), scales, cam_dtype=cam_dtype)
+        launches = K.LAUNCHES["tta_fuse"] - before
+        same = all(torch.equal(a, r) for a, r in zip(outs, got))
+        tol = 4e-3 if dt == "bf16" else 1e-6
+        log(f"  K5 {what} B={b} C={n_cam}/{n_cam + 1} {dt} {len(scales)} scales: "
+            f"max|kernel - plain| cam {errs[0]:.3e}, aux {errs[1]:.3e}, seg {errs[2]:.3e} "
+            f"(rel {seg_rel:.3e}); values that differ {differ} of {got[0].numel()} / "
+            f"{got[2].numel()}; multi_scale_camseg launches {launches}, equal {same}")
+        if not (errs[0] <= tol and errs[1] <= tol and launches == 1 and same):
+            failures.append(f"K5 {what}: errs {errs} launches {launches} same {same}")
+        try:
+            torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=1e-4)
+        except AssertionError as e:
+            failures.append(f"K5 {what} seg: {e}")
+        del got, want, outs
+        nbytes = sum(x.numel() * 4 for x in cams + segs + [aux]) + 4 * b * crop * crop * (
+            3 * n_cam + 1)
+        bms, by = bound_ms(nbytes, 0.0, PEAK_F32)
+        ms = time_ms(lambda: K.tta_fuse(cams, segs, aux, (crop, crop), cam_dtype))
+        plain = time_ms(lambda: K.plain_tta_fuse(cams, segs, aux, (crop, crop), cam_dtype),
+                        reps=3, warmup=1)
+        log(f"  K5 {what}: kernel {ms:.4f} ms (one launch a TTA call), bound {bms:.4f} ms "
+            f"({by}, {nbytes / 1e9:.3f} GB), {bms / ms:.3f} of the bound; plain {plain:.4f} ms")
+        rows.append(dict(
+            name="tta_fuse", route="cuda", source="cosa_tpu_torch/csrc/tta_fuse.cu",
+            replaces="none (XLA fused this chain)",
+            shape=f"{what}: B={b} C={n_cam}/{n_cam + 1} {dt} {len(scales)} scales -> 448^2",
+            max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+            library_ms=None,
+        ))
+        del maps, cams, segs, aux
+        torch.cuda.empty_cache()
 
 
 def phase_opt_in_ops(smi: str):
@@ -708,9 +788,9 @@ def _main_cfg(**kw):
 
 
 def _launch_dicts():
-    from cosa_tpu_torch.kernels import flash, flash_variants, rff
+    from cosa_tpu_torch.kernels import flash, flash_variants, rff, tta_fuse
 
-    return flash.LAUNCHES, rff.LAUNCHES, flash_variants.LAUNCHES
+    return flash.LAUNCHES, rff.LAUNCHES, flash_variants.LAUNCHES, tta_fuse.LAUNCHES
 
 
 def _counts():
@@ -751,9 +831,10 @@ def phase_main_path(smi: str):
                 r[k] != 0.0 for k in ("seg_loss", "cam_loss", "reg_loss")):
             raise AssertionError(f"zero gated loss after warmup: {r}")
     # per step: 12 blocks x (3 teacher scales + 1 student) forwards, 12
-    # student backwards, one RFF embedding; plus the 2 RFF probes of the
-    # energy-convention calibration before the first step
-    want = _want(flash_fwd=48 * steps, flash_bwd=12 * steps, rff_phi=steps + 2)
+    # student backwards, one RFF embedding, one TTA fuse; plus the 2 RFF
+    # probes of the energy-convention calibration before the first step
+    want = _want(flash_fwd=48 * steps, flash_bwd=12 * steps, rff_phi=steps + 2,
+                 tta_fuse=steps)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     times = [r["itertime"] for r in recs[1:]]
@@ -902,9 +983,11 @@ def phase_scoring(smi: str):
                         resume=os.path.join(out, "ckpt", "step_00000002.pt"))
     for d in (out, output_dir(cfg_r)):
         shutil.rmtree(d, ignore_errors=True)
-    # K1 per eval batch: 12 blocks at each scale (the flips ride in the batch)
+    # per eval batch: K1 for 12 blocks at each scale (the flips ride in the
+    # batch), one TTA fuse
     per_batch = 12 * len(cfg.eval_scales)
-    per_val = 2 * -(-cfg.fasteval_n // cfg.eval_batch) * per_batch  # student, teacher
+    val_batches = 2 * -(-cfg.fasteval_n // cfg.eval_batch)  # student, teacher
+    per_val = val_batches * per_batch
     counts = {}
 
     def run(tag, fn, **want):
@@ -917,7 +1000,8 @@ def phase_scoring(smi: str):
         return res
 
     res = run("train_and_validation", lambda: train(cfg, device="cuda"),
-              flash_fwd=48 * 4 + 2 * per_val, flash_bwd=12 * 4, rff_phi=4 + 2)
+              flash_fwd=48 * 4 + 2 * per_val, flash_bwd=12 * 4, rff_phi=4 + 2,
+              tta_fuse=4 + 2 * val_batches)
     with open(os.path.join(out, "metrics.jsonl")) as f:
         vals = [r for r in map(json.loads, f) if r["kind"] == "val"]
     if [(r["iter"], r["model"]) for r in vals] != [(2, "ON"), (2, "AN"), (4, "ON"), (4, "AN")]:
@@ -933,8 +1017,9 @@ def phase_scoring(smi: str):
         f"{res['best_cam']:.2f}, launches {counts['train_and_validation']}")
 
     n_final = len(build_test_dataset(cfg))
+    final_batches = -(-n_final // cfg.eval_batch)
     fin = run("final_eval", lambda: finaleval(cfg, device="cuda"),
-              flash_fwd=-(-n_final // cfg.eval_batch) * per_batch)
+              flash_fwd=final_batches * per_batch, tta_fuse=final_batches)
     t = fin["time"]
     if t["images"] != n_final:
         raise AssertionError(f"phase 6 final eval: {t['images']} of {n_final} images scored")
@@ -947,7 +1032,8 @@ def phase_scoring(smi: str):
         f"{json.dumps({k: fin[k]['miou'] for k in score_names(fin)})}")
 
     resumed = run("resumed", lambda: train(cfg_r, device="cuda"),
-                  flash_fwd=48 * 2 + per_val, flash_bwd=12 * 2, rff_phi=2 + 2)
+                  flash_fwd=48 * 2 + per_val, flash_bwd=12 * 2, rff_phi=2 + 2,
+                  tta_fuse=2 + val_batches)
     straight = {r["iter"]: r for r in res["records"]}
     if [r["iter"] for r in resumed["records"]] != [3, 4]:
         raise AssertionError(f"phase 6 resume: steps {[r['iter'] for r in resumed['records']]}")
@@ -1020,7 +1106,8 @@ def phase_optin(smi: str):
     cfg_r = cfg.replace(name="optin_resume", resume=os.path.join(out, "ckpt", "step_00000002.pt"))
     for d in (out, loop_mod.output_dir(cfg_r)):
         shutil.rmtree(d, ignore_errors=True)
-    per_val = 2 * -(-OPTIN_VAL // cfg.eval_batch) * 12 * len(cfg.eval_scales)
+    val_batches = 2 * -(-OPTIN_VAL // cfg.eval_batch)  # student, teacher: one TTA each
+    per_val = val_batches * 12 * len(cfg.eval_scales)
 
     loaded, first, thre = [], {}, {"optin": [], "optin_resume": []}
 
@@ -1075,7 +1162,8 @@ def phase_optin(smi: str):
     with _patched(loop_mod, "load_pretrained_into_state", checking), \
             _patched(energy_mod, "build_lattice", first_feats), \
             _patched(energy_mod, "apply_lattice", first_values):
-        res = run("optin", cfg, flash_fwd=48 * 4 + 2 * per_val, flash_bwd=12 * 4)
+        res = run("optin", cfg, flash_fwd=48 * 4 + 2 * per_val, flash_bwd=12 * 4,
+                  tta_fuse=4 + 2 * val_batches)
     if loaded != [True, True]:
         raise AssertionError(f"phase 8: pretrained encoder weights in student, teacher: {loaded}")
     recs = res["records"]
@@ -1091,7 +1179,8 @@ def phase_optin(smi: str):
         f"after step 1 low {low:.6f} high {high:.6f} (fixed {cfg.low_thre}, "
         f"{cfg.high_thre}); launches {counts['optin']}")
 
-    resumed = run("optin_resume", cfg_r, flash_fwd=48 * 2 + per_val, flash_bwd=12 * 2)
+    resumed = run("optin_resume", cfg_r, flash_fwd=48 * 2 + per_val, flash_bwd=12 * 2,
+                  tta_fuse=2 + val_batches)
     if [r["iter"] for r in resumed["records"]] != [3, 4]:
         raise AssertionError(f"phase 8 resume: steps {[r['iter'] for r in resumed['records']]}")
     straight = {r["iter"]: r for r in recs}
@@ -1171,7 +1260,7 @@ def phase_host_crf(smi: str, out: str, cfg, device_time):
             res = evaluate(c, model, val_ds, getcrf=True, max_images=n_img, device="cuda")
         torch.cuda.synchronize()
         counts[f"crf_{backend}"] = _counts()
-        want = _want(flash_fwd=n_img * 12 * len(c.eval_scales))
+        want = _want(flash_fwd=n_img * 12 * len(c.eval_scales), tta_fuse=n_img)
         if counts[f"crf_{backend}"] != want:
             raise AssertionError(f"phase 9 {backend}: launch counts {counts[f'crf_{backend}']} "
                                  f"!= {want}")
@@ -1285,7 +1374,7 @@ def phase_pseudo_submission(smi: str, out: str, cfg):
         shutil.rmtree(os.path.join(cfg.work_dir, tag), ignore_errors=True)
         with _patched(pp, "generate_pseudo_labels", _timed(timed, tag)):
             run(tag, lambda: make_pseudo.main([tag, *flags, "--usepar", par]),
-                flash_fwd=len(names) * per_image)
+                flash_fwd=len(names) * per_image, tta_fuse=len(names))
         check_pseudo(tag, os.path.join(cfg.work_dir, tag, "pseudo"), sizes)
 
     model = ckpt.load_best(out, "seg", build_model(cfg, "cuda"))
@@ -1295,7 +1384,7 @@ def phase_pseudo_submission(smi: str, out: str, cfg):
     crf = _timed(timed, "pseudo_crf")(pp.generate_pseudo_labels)
     run("pseudo_crf", lambda: crf(cfg.replace(usepar=False), model, val_ds, crf_dir,
                                   max_images=n_crf, use_crf=True, device="cuda"),
-        flash_fwd=n_crf * per_image)
+        flash_fwd=n_crf * per_image, tta_fuse=n_crf)
     check_pseudo("pseudo_crf", crf_dir, {n: sizes[n] for n in names[:n_crf]},
                  " (the native C++ CRF on the host)")
 
@@ -1315,7 +1404,7 @@ def phase_pseudo_submission(smi: str, out: str, cfg):
     batches = sum(-(-k // cfg.eval_batch) for k in buckets.values())
     with _patched(loop_mod, "dump_submission", _timed(timed, "submission")):
         res = run("submission", lambda: loop_mod.finaleval(cfg_s, device="cuda"),
-                  flash_fwd=batches * 12 * len(cfg.eval_scales))
+                  flash_fwd=batches * 12 * len(cfg.eval_scales), tta_fuse=batches)
     dst = submission_dir(loop_mod.output_dir(cfg_s))
     if res != {"submission_dir": dst}:
         raise AssertionError(f"phase 10 submission: {res}")
@@ -1330,7 +1419,8 @@ def phase_pseudo_submission(smi: str, out: str, cfg):
     n_vis = 4
     res = run("visuals", lambda: evaluate(cfg, model, val_ds, max_images=n_vis,
                                           save_dir=vis_dir, device="cuda"),
-              flash_fwd=-(-n_vis // cfg.eval_batch) * 12 * len(cfg.eval_scales))
+              flash_fwd=-(-n_vis // cfg.eval_batch) * 12 * len(cfg.eval_scales),
+              tta_fuse=-(-n_vis // cfg.eval_batch))
     _check_scores("phase 10 visuals", {k: res[k]["miou"] for k in score_names(res)})
     picked = [val_ds[i] for i in eval_indices(len(val_ds), n_vis)]
     _check_labels("phase 10 visuals", os.path.join(vis_dir, "seg"),
@@ -1422,13 +1512,15 @@ def phase_variants(smi: str, root: str):
                 return state
             return fn
 
-        per_val = 2 * -(-OPTIN_VAL // cfg.eval_batch) * 12 * len(cfg.eval_scales)
+        val_batches = 2 * -(-OPTIN_VAL // cfg.eval_batch)  # student, teacher
+        per_val = val_batches * 12 * len(cfg.eval_scales)
         _reset_counts()
         with _patched(loop_mod, "load_pretrained_into_state", checking):
             res = loop_mod.train(cfg, device="cuda")
         torch.cuda.synchronize()
         counts[tag] = _counts()
-        want = _want(flash_fwd=48 * 4 + per_val, flash_bwd=12 * 4, rff_phi=4 + 2)
+        want = _want(flash_fwd=48 * 4 + per_val, flash_bwd=12 * 4, rff_phi=4 + 2,
+                     tta_fuse=4 + val_batches)
         if counts[tag] != want:
             raise AssertionError(f"phase 11 {tag}: launch counts {counts[tag]} != {want}")
         if loaded != [True, True] or (ext == "pth") != ("encoder.dist_token" in src):
@@ -1532,7 +1624,8 @@ def phase_zoo(smi: str, root: str):
     ``finaleval`` of the best-seg weights on the val split with the device
     CRF, and a run resumed from step 2; held: the file's backbone in
     student and teacher before step 1, finite losses and mIoUs, exact
-    launch counts (K3 once a step, after the calibration's 2; no K1/K2),
+    launch counts (K3 once a step, after the calibration's 2; K5 once a
+    step and once an eval batch; no K1/K2),
     the resumed losses within 5e-3. (b) Every seg-only family: at its tiny
     test config in f32, the card's eval output within 1e-4 of the same
     module on the CPU; at its published width, batch 2 at 512^2 in bf16,
@@ -1547,6 +1640,7 @@ def phase_zoo(smi: str, root: str):
     import torch
 
     import cosa_tpu_torch.train.loop as loop_mod
+    from cosa_tpu_torch.data.loader import build_test_dataset
     from cosa_tpu_torch.eval.engine import score_names
     from cosa_tpu_torch.models.network import build_model, init_params
     from cosa_tpu_torch.models.zoo.resnet import BatchNorm
@@ -1561,6 +1655,7 @@ def phase_zoo(smi: str, root: str):
     for d in (out, loop_mod.output_dir(cfg_r)):
         shutil.rmtree(d, ignore_errors=True)
     loaded, counts = [], {}
+    val_batches = 2 * -(-OPTIN_VAL // cfg.eval_batch)  # student, teacher: one TTA each
 
     def checking(load):  # before step 1: both backbones hold the file's weights
         def fn(c, state):
@@ -1583,7 +1678,8 @@ def phase_zoo(smi: str, root: str):
 
     torch.cuda.reset_peak_memory_stats()
     with _patched(loop_mod, "load_pretrained_into_state", checking):
-        res = run("swin", lambda: loop_mod.train(cfg, device="cuda"), rff_phi=4 + 2)
+        res = run("swin", lambda: loop_mod.train(cfg, device="cuda"), rff_phi=4 + 2,
+                  tta_fuse=4 + 2 * val_batches)
     peak = torch.cuda.max_memory_allocated()
     if loaded != [True, True]:
         raise AssertionError(f"phase 12: pretrained backbone in student, teacher: {loaded}")
@@ -1608,7 +1704,8 @@ def phase_zoo(smi: str, root: str):
     # finaleval scores the run's best-seg weights (a pretrained_path would
     # name the checkpoint to score instead)
     fin = run("swin_finaleval",
-              lambda: loop_mod.finaleval(cfg.replace(pretrained_path=""), device="cuda"))
+              lambda: loop_mod.finaleval(cfg.replace(pretrained_path=""), device="cuda"),
+              tta_fuse=-(-len(build_test_dataset(cfg)) // cfg.eval_batch))
     t = fin["time"]
     _check_scores("phase 12 final eval", {k: fin[k]["miou"] for k in score_names(fin)})
     log(f"phase 12 swin final eval: {t['images']} images, scales {list(cfg.eval_scales)}: "
@@ -1616,7 +1713,8 @@ def phase_zoo(smi: str, root: str):
         f"s/image (device, crf_reduce {cfg.crf_reduce}); mIoU "
         f"{json.dumps({k: round(fin[k]['miou'], 6) for k in score_names(fin)})}, on {smi}")
 
-    resumed = run("swin_resume", lambda: loop_mod.train(cfg_r, device="cuda"), rff_phi=2 + 2)
+    resumed = run("swin_resume", lambda: loop_mod.train(cfg_r, device="cuda"), rff_phi=2 + 2,
+                  tta_fuse=2 + val_batches)
     if [r["iter"] for r in resumed["records"]] != [3, 4]:
         raise AssertionError(f"phase 12 resume: steps {[r['iter'] for r in resumed['records']]}")
     straight = {r["iter"]: r for r in recs}
@@ -1676,7 +1774,8 @@ def phase_zoo(smi: str, root: str):
     counts["seg_only"] = _counts()
     if counts["seg_only"] != _want():
         raise AssertionError(f"phase 12 seg-only: launch counts {counts['seg_only']}")
-    log("phase 12 ok: Swin-B from its mmseg file, K3 once a step, no K1/K2; validations, "
+    log("phase 12 ok: Swin-B from its mmseg file, K3 once a step, K5 once a step and an "
+        "eval batch, no K1/K2; validations, "
         "final eval and resume; every seg-only family finite at its published width and "
         "within 1e-4 of the CPU at its tiny config")
     return counts
@@ -1777,7 +1876,7 @@ def _int8_runs(smi: str, sec_iter: float, counts: dict):
         torch.cuda.synchronize()
         counts[tag] = _counts()
         mm = quant.LAUNCHES["int8_mm"]
-        want = _want(flash_fwd=48 * 4, flash_bwd=12 * 4, rff_phi=4 + 2)
+        want = _want(flash_fwd=48 * 4, flash_bwd=12 * 4, rff_phi=4 + 2, tta_fuse=4)
         if counts[tag] != want or mm != per_step * 4:
             raise AssertionError(f"phase 13 {tag}: launches {counts[tag]}, int8 products "
                                  f"{mm}; want {want}, {per_step * 4}")
@@ -1852,7 +1951,7 @@ def _optimizer_runs(smi: str, counts: dict):
         res = train(cfg, device="cuda")
         torch.cuda.synchronize()
         counts[kind] = _counts()
-        want = _want(flash_fwd=48 * 3, flash_bwd=12 * 3, rff_phi=3 + 2)
+        want = _want(flash_fwd=48 * 3, flash_bwd=12 * 3, rff_phi=3 + 2, tta_fuse=3)
         if counts[kind] != want:
             raise AssertionError(f"phase 13 {kind}: launches {counts[kind]} != {want}")
         recs = res["records"]
@@ -1880,7 +1979,8 @@ def _legacy_on_the_card(counts: dict):
     1e-3 relative of the CPU's plain path) and multi_scale_camseg_v2
     ('max', 'sum') / ('sum', 'sum') on the bf16 ViT-B teacher against the
     live multi_scale_camseg with f32 CAM arithmetic (K1 12 times a scale
-    each; within V2_GAP), the step's bf16 CAM fuse read beside it."""
+    each, and K5 once in each live call; within V2_GAP), the step's bf16 CAM
+    fuse read beside it."""
     import numpy as np
     import torch
 
@@ -1943,8 +2043,10 @@ def _legacy_on_the_card(counts: dict):
         f"cam {g[0]:.3e}, cam_aux {g[1]:.3e}, seg {g[2]:.3e} of its range (bound {V2_GAP}); "
         f"against the step's bf16 CAM fuse: cam {g16[0]:.3e}, cam_aux {g16[1]:.3e}, seg "
         f"{g16[2]:.3e}; launches {json.dumps({t: counts[f'tta_{t}'] for t in fuse})}")
-    want = _want(flash_fwd=12 * len(cfg.pseudo_scales))
-    if any(counts[f"tta_{t}"] != want for t in fuse):
+    k1 = 12 * len(cfg.pseudo_scales)
+    want = {"live": _want(flash_fwd=k1, tta_fuse=1), "live_bf16": _want(flash_fwd=k1, tta_fuse=1),
+            "v2": _want(flash_fwd=k1)}  # v2 fuses with its own library ops
+    if any(counts[f"tta_{t}"] != want[t] for t in fuse):
         raise AssertionError(f"phase 13 TTA launches {counts}")
     if not max(g) <= V2_GAP:
         raise AssertionError(f"phase 13 v2 vs live: gaps {g}")
@@ -2181,9 +2283,9 @@ def phase_parallel(smi: str, sec_iter: float, convention: float):
     ref_cfg = cfg_of(name="p14_ref")
     per_val = 12 * len(ref_cfg.eval_scales)  # K1 per image per model
 
-    def want(steps, images):
+    def want(steps, images):  # K5: one TTA a step, one an image per model
         return dict(flash_fwd=48 * steps + 2 * images * per_val, flash_bwd=12 * steps,
-                    rff_phi=steps)
+                    rff_phi=steps, tta_fuse=steps + 2 * images)
 
     launches, secs = {}, {}
 
@@ -2348,7 +2450,8 @@ def phase_runs(smi: str, out8: str, cfg8):
     out = loop_mod.output_dir(cfg)
     n_val = len(build_val_dataset(cfg))
     per_batch = 12 * len(cfg.eval_scales)  # K1 per eval batch: 12 blocks at each scale
-    val_k1 = -(-n_val // cfg.eval_batch) * per_batch  # one network on the val split
+    val_batches = -(-n_val // cfg.eval_batch)  # one network on the val split, one TTA each
+    val_k1 = val_batches * per_batch
     counts = {}
 
     def run(tag, fn, **want):
@@ -2366,7 +2469,8 @@ def phase_runs(smi: str, out8: str, cfg8):
     n_vals = P15_STEPS // P15_EVAL
     _, _, secs = run("synthrun", lambda: run_synth.main(argv),
                      flash_fwd=48 * P15_STEPS + 2 * n_vals * val_k1 + val_k1,
-                     flash_bwd=12 * P15_STEPS, rff_phi=P15_STEPS + 2)
+                     flash_bwd=12 * P15_STEPS, rff_phi=P15_STEPS + 2,
+                     tta_fuse=P15_STEPS + (2 * n_vals + 1) * val_batches)
     with open(os.path.join(out, "metrics.jsonl")) as f:
         recs = [json.loads(ln) for ln in f]
     trains = [r for r in recs if r["kind"] == "train"]
@@ -2408,7 +2512,8 @@ def phase_runs(smi: str, out8: str, cfg8):
     _, text, secs = run("report_synth", lambda: report_synth.main(
         ["--out_dir", out, "--data_root", root, "--split_dir", cfg.split_dir,
          "--panels", str(P15_PANELS)]),
-        flash_fwd=-(-P15_PANELS // cfg.eval_batch) * per_batch)
+        flash_fwd=-(-P15_PANELS // cfg.eval_batch) * per_batch,
+        tta_fuse=-(-P15_PANELS // cfg.eval_batch))
     rows = [f"| {i} | {100 * v['ON']['CAM']:.1f} | {100 * v['ON']['Seg_vd']:.1f} | "
             f"{100 * v['AN']['CAM']:.1f} | {100 * v['AN']['Seg_vd']:.1f} |"
             for i, v in ((i, {r["model"]: r for r in vals if r["iter"] == i}) for i in its)]
@@ -2445,12 +2550,12 @@ def phase_runs(smi: str, out8: str, cfg8):
     shutil.rmtree(os.path.join(work, "parity_voc"), ignore_errors=True)
     rc, text, secs = run("parity_voc", lambda: parity_voc.main(
         [weights, "--voc_root", root, "--split_dir", cfg8.split_dir, "--work_dir", work]),
-        flash_fwd=val_k1)
+        flash_fwd=val_k1, tta_fuse=val_batches)
     ref_cfg = preset_config("VOC12", name="p15_parity_ref", work_dir=work, data_root=root,
                             split_dir=cfg8.split_dir, pretrained_path=weights)
     shutil.rmtree(loop_mod.output_dir(ref_cfg), ignore_errors=True)
     ref, _, _ = run("parity_ref", lambda: loop_mod.finaleval(ref_cfg, device="cuda"),
-                    flash_fwd=val_k1)
+                    flash_fwd=val_k1, tta_fuse=val_batches)
     _check_scores("phase 15 parity reference", {k: ref[k]["miou"] for k in score_names(ref)})
     with open(parity_voc.EXPECTED) as f:
         expected = json.load(f)
@@ -2549,10 +2654,12 @@ def phase_benchmarks(smi: str, kind: str):
             raise AssertionError(f"phase 16 {tag}: launch counts {counts[tag]} != {_want(**want)}")
         return _json_lines(text.getvalue(), tag), time.time() - t0
 
-    # each line: its warm-up and timed steps (the counted step runs the plain versions)
+    # each line: its warm-up and timed steps (the counted step runs the plain
+    # versions of K1-K3; its TTA fuse launches K5)
     steps = bench.WARMUP + P16_ITERS
     lines, secs = run("bench", lambda: bench.main(["--iters", str(P16_ITERS)]),
-                      flash_fwd=48 * 3 * steps, flash_bwd=12 * 3 * steps, rff_phi=2 * steps)
+                      flash_fwd=48 * 3 * steps, flash_bwd=12 * 3 * steps, rff_phi=2 * steps,
+                      tta_fuse=3 * (steps + 1))
     by = {ln["metric"]: ln for ln in lines}
     if len(lines) != 4 or {lines[0]["metric"], lines[-1]["metric"]} != {"voc_train_imgs_per_sec"}:
         raise AssertionError(f"phase 16 bench: lines {[ln['metric'] for ln in lines]}")
@@ -2566,7 +2673,8 @@ def phase_benchmarks(smi: str, kind: str):
     steps = bench.WARMUP + P16_SCALE_ITERS
     lines, secs = run("bench_scales", lambda: bench_scales.main(
         ["--iters", str(P16_SCALE_ITERS)]),
-        flash_fwd=(48 + 36 + 24) * steps, flash_bwd=12 * 3 * steps, rff_phi=3 * steps)
+        flash_fwd=(48 + 36 + 24) * steps, flash_bwd=12 * 3 * steps, rff_phi=3 * steps,
+        tta_fuse=3 * (steps + 1))
     for ln in lines:
         _check_step_line(ln, kind, K1_PER_STEP[len(ln["pseudo_scales"])], 1)
     log(f"phase 16 bench_scales: {secs:.1f} s; " + "; ".join(
@@ -2593,7 +2701,7 @@ def phase_benchmarks(smi: str, kind: str):
     steps = bench_e2e.WARMUP + 2 * P16_E2E_ITERS  # end to end, then compute-only
     (line,), secs = run("bench_e2e", lambda: bench_e2e.main(
         [str(P16_E2E_ITERS), "--n_imgs", str(P16_E2E_IMGS)]),
-        flash_fwd=48 * steps, flash_bwd=12 * steps, rff_phi=steps)
+        flash_fwd=48 * steps, flash_bwd=12 * steps, rff_phi=steps, tta_fuse=steps)
     if line["device"] != kind or not line["sec_per_iter"] > 0 < line["compute_sec_per_iter"]:
         raise AssertionError(f"phase 16 bench_e2e: {line}")
     log(f"phase 16 bench_e2e: {secs:.1f} s; e2e {line['sec_per_iter']:.4f} s/iter against "
@@ -2601,13 +2709,14 @@ def phase_benchmarks(smi: str, kind: str):
 
     trace = os.path.join(root, "p16_trace.json.gz")
     # the pieces: full (+1 counted plain), teacher_tta, student_grad, update;
-    # one TTA for the pseudo targets; then the profiled steps (+ wait, warm-up)
+    # one TTA for the pseudo targets; then the profiled steps (+ wait, warm-up).
+    # K5 runs in the counted full step and the counted teacher_tta too
     calls = bench.WARMUP + P16_SCALE_ITERS
     full = calls + 2 + P16_PROFILE_STEPS
     lines, secs = run("profile_step", lambda: profile_step.main(
         ["--iters", str(P16_SCALE_ITERS), "--steps", str(P16_PROFILE_STEPS), "--out", trace]),
         flash_fwd=48 * full + 36 * (1 + calls) + 12 * calls,
-        flash_bwd=12 * (full + calls), rff_phi=full + calls)
+        flash_bwd=12 * (full + calls), rff_phi=full + calls, tta_fuse=full + 1 + calls + 2)
     pieces, prof = lines[:-1], lines[-1]
     if [ln["piece"] for ln in pieces] != ["full", "teacher_tta", "student_grad", "update"] or \
             not P16_MFU[0] < pieces[0]["mfu"] < P16_MFU[1]:
@@ -2680,7 +2789,8 @@ def phase_audit(smi: str, root: str):
         res = train(cfg, device="cuda")
     torch.cuda.synchronize()
     counts["train"] = _counts()
-    want = _want(flash_fwd=48 * P17_STEPS, flash_bwd=12 * P17_STEPS, rff_phi=P17_STEPS + 2)
+    want = _want(flash_fwd=48 * P17_STEPS, flash_bwd=12 * P17_STEPS, rff_phi=P17_STEPS + 2,
+                 tta_fuse=P17_STEPS)
     if counts["train"] != want:
         raise AssertionError(f"phase 17 train: launch counts {counts['train']} != {want}")
     first, last = res["records"][0], res["records"][-1]
@@ -2699,9 +2809,10 @@ def phase_audit(smi: str, root: str):
     # the teacher's TTA with the kernels (36), the captured step (48 + 12,
     # K3 once), each site again (48 + 12), each repeat (the student's
     # forward and backward, the teacher at its 3 token counts); K3 twice
-    # more in the energy convention's calibration
+    # more in the energy convention's calibration; K5 in the TTA with each
+    # of the three attentions and in the captured step
     want = _want(flash_fwd=36 + 48 + 48 + 4 * P17_REPEAT, flash_bwd=12 + 12 + P17_REPEAT,
-                 rff_phi=3)
+                 rff_phi=3, tta_fuse=3 + 1)
     if counts["audit"] != want:
         raise AssertionError(f"phase 17 audit: launch counts {counts['audit']} != {want}")
     for line in audit_attention.table(report):
@@ -2749,7 +2860,7 @@ def main() -> int:
     benches = phase_benchmarks(smi, kind)
     audit = phase_audit(smi, cfg.data_root)
     for r in rows:
-        # launches on the kernel's own path: training for K1-K3, the
+        # launches on the kernel's own path: training for K1-K3 and K5, the
         # microbenchmark for K4; the other paths' runs beside them
         r["launches"] = (mb_counts if r["name"].startswith("flash_fwd_") else counts)[r["name"]]
         for key, runs in (("scoring", scoring), ("optin", optin), ("pseudo", pseudo),

@@ -19,8 +19,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from cosa_tpu_torch.kernels.tta_fuse import tta_fuse
 from cosa_tpu_torch.ops.image import hflip
 from cosa_tpu_torch.ops.resize import resize_bilinear
 from cosa_tpu_torch.utils.trace import span
@@ -41,13 +41,6 @@ def box_mask(img_box: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return (iy >= h0) & (iy < h1) & (ix >= w0) & (ix < w1)
 
 
-def minmax_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Per-(sample, channel) spatial min-max normalization."""
-    mn = x.amin(dim=(1, 2), keepdim=True)
-    mx = (x - mn).amax(dim=(1, 2), keepdim=True)
-    return (x - mn) / (mx + eps)
-
-
 def scale_size(h: int, w: int, s: float) -> Tuple[int, int]:
     return int(s * h), int(s * w)
 
@@ -65,17 +58,16 @@ def multi_scale_camseg(
     the model output dict. CAMs fuse flip-wise by max, then scale-wise by
     ReLU-sum and min-max; seg logits sum in f32. Reference quirk kept:
     ``cam_aux`` is the LAST scale's flip-max only. CAM arithmetic runs in
-    ``cam_dtype`` (bf16 under mixed precision). Each scale's forward runs
-    under the span ``tta_forward``, the rest under ``tta_fuse``
-    (``utils/trace.py``)."""
+    ``cam_dtype`` (bf16 under mixed precision). The fuse itself is one
+    :func:`~cosa_tpu_torch.kernels.tta_fuse.tta_fuse` call over every
+    scale's maps (at most 8 scales). Each scale's forward runs under the
+    span ``tta_forward``, the rest under ``tta_fuse`` (``utils/trace.py``)."""
     b, h, w, _ = imgs.shape
     assert 1.0 in tuple(scales), "scale 1.0 must be in scales"
-    cam_sum = 0.0
-    cam_aux_last = None
-    seg_sum = 0.0
+    cams, segs = [], []
     cls_sum = 0.0
     cls_aux_sum = 0.0
-    for i, s in enumerate(scales):
+    for s in scales:
         with span("tta_fuse"):
             if s == 1.0:
                 xcat = torch.cat([imgs, hflip(imgs)], dim=0)
@@ -88,31 +80,15 @@ def multi_scale_camseg(
         with span("tta_forward"):
             out = forward(xcat)
         with span("tta_fuse"):
-            cam_raw = out["cam"].to(cam_dtype)
-            cam = torch.maximum(
-                resize_bilinear(cam_raw[:b], (h, w)),
-                resize_bilinear(cam_raw[b:], (h, w), flip_w=True),
-            )
-            seg_raw = out["seg"].to(torch.float32)
-            seg = resize_bilinear(seg_raw[:b], (h, w)) + resize_bilinear(
-                seg_raw[b:], (h, w), flip_w=True
-            )
-            cam_sum = cam_sum + F.relu(cam)
-            seg_sum = seg_sum + seg
-            if i == len(scales) - 1:
-                aux_raw = out["cam_aux"].to(cam_dtype)
-                cam_aux_last = F.relu(torch.maximum(
-                    resize_bilinear(aux_raw[:b], (h, w)),
-                    resize_bilinear(aux_raw[b:], (h, w), flip_w=True),
-                ))
+            cams.append(out["cam"])
+            segs.append(out["seg"])
             if getcls:
                 c = out["cls"].to(torch.float32)
                 ca = out["cls_aux"].to(torch.float32)
                 cls_sum = cls_sum + c[:b] + c[b:]
                 cls_aux_sum = cls_aux_sum + ca[:b] + ca[b:]
     with span("tta_fuse"):
-        cam = minmax_norm(cam_sum).to(torch.float32)
-        cam_aux = minmax_norm(cam_aux_last).to(torch.float32)
+        cam, cam_aux, seg_sum = tta_fuse(cams, segs, out["cam_aux"], (h, w), cam_dtype)
     if getcls:
         return cam, cam_aux, seg_sum, cls_sum, cls_aux_sum
     return cam, cam_aux, seg_sum

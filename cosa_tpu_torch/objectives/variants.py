@@ -23,8 +23,9 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from cosa_tpu_torch.kernels.tta_fuse import minmax_norm
 from cosa_tpu_torch.objectives.losses import _per_pixel_nll
-from cosa_tpu_torch.objectives.pseudo import cam_validation, minmax_norm, scale_size
+from cosa_tpu_torch.objectives.pseudo import cam_validation, scale_size
 from cosa_tpu_torch.ops.image import hflip
 from cosa_tpu_torch.ops.resize import resize_bilinear
 

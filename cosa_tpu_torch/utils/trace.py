@@ -23,8 +23,9 @@ of the card by the innermost span open at its middle: the traced run's
   validation's)
     tta_forward       each scale's forward: ``tta_forward_idle_ms.train``,
                       ``tta_idle_ms.eval``
-    tta_fuse          each scale's input (resize, flip, concatenation) and
-                      fuse, and the final min-max: ``tta_fuse_idle_ms.train``,
+    tta_fuse          each scale's input (resize, flip, concatenation), the
+                      keeping of its maps, and the fuse of every scale after
+                      the last (kernels/tta_fuse.py): ``tta_fuse_idle_ms.train``,
                       ``tta_idle_ms.eval``
   eval/engine.py (one each a batch; ``eval_dump`` with files to write)
     eval_load         the batch's dataset reads: ``load_idle_ms.eval``

@@ -513,7 +513,7 @@ def test_gloo_dp2_on_one_card_matches_one_process(gpu):
     """Two ranks over gloo on the one card (parallel/launch.py), batch 2
     each, against one process at the global batch of 4 from the same state
     and batches: two steps' losses within 5e-3 relative (the bound of
-    chip_smoke.py's phases 5 and 14), the same K1/K2/K3 launches on each
+    chip_smoke.py's phases 5 and 14), the same K1/K2/K3/K5 launches on each
     rank as in the one process."""
     from cosa_tpu_torch.config import preset_config
     from cosa_tpu_torch.parallel.launch import spawn, steps_worker
@@ -534,7 +534,7 @@ def test_gloo_dp2_on_one_card_matches_one_process(gpu):
     ranks = spawn(steps_worker, 2, preset_config("synthetic", batch_size=2, dp=2, **kw),
                   "cuda:0", init, batches)
     assert one["launches"] == {"flash_fwd": 2 * 48, "flash_bwd": 2 * 12, "rff_phi": 2,
-                               "flash_fwd_bf16exp": 0, "flash_fwd_nomax": 0}
+                               "flash_fwd_bf16exp": 0, "flash_fwd_nomax": 0, "tta_fuse": 2}
     for out in ranks:
         assert out["launches"] == one["launches"]
         for got, want in zip(out["metrics"], one["metrics"]):
@@ -548,3 +548,81 @@ def test_flash_kernels_at_the_tensor_parallel_head_count(gpu, n):
     """K1 and K2 at tp=2's local head count of ViT-B (6 of 12 heads, B*H
     = 24 at batch 4) and the main path's token counts."""
     _flash_vs_plain(gpu, 4, 6, n, None)
+
+
+# the three cells' fuse shapes at crop 448: (B, CAM channels, CAM type,
+# scales): VOC training, COCO training, VOC validation
+TTA_FUSE_SHAPES = [
+    (4, 20, torch.bfloat16, (1.0, 0.5, 1.5)),
+    (8, 80, torch.bfloat16, (1.0, 0.5, 1.5)),
+    (8, 20, torch.float32, (1.0, 0.5, 1.5, 0.75, 1.25)),
+]
+
+
+@pytest.mark.parametrize("b,n_cam,cam_dtype,scales", TTA_FUSE_SHAPES)
+def test_tta_fuse_kernel_matches_plain(gpu, b, n_cam, cam_dtype, scales):
+    """K5 against ``plain_tta_fuse`` on the card, every call of
+    ``multi_scale_camseg`` one launch. The kernel rounds where the plain
+    path rounds and contracts the interpolation's products into FMAs as
+    torch's build of its bilinear kernels does (bitwise equal with torch
+    2.11, CUDA 12.8). Another torch build may contract otherwise: a
+    last-bit f32 difference can move one rounding of a bf16 value or
+    partial sum by one ulp, which the normalization carries as about one
+    bf16 ulp of a value below 1 (2^-8, 4e-3), and in f32 as a few f32 ulps
+    of values up to 1 (1e-6). The seg sums add the same terms in the same
+    order, up to that contraction (rtol 1e-6, atol 1e-4 on logits of
+    order 10)."""
+    _tta_fuse_vs_plain(gpu, b, n_cam, cam_dtype, scales, 16, 1)
+
+
+# the Swin teacher's shapes: its CAM and seg logits on a 32-pixel grid, its
+# aux CAM on a 16-pixel one (training, validation)
+SWIN_TTA_FUSE_SHAPES = [
+    (4, 20, torch.bfloat16, (1.0, 0.5, 1.5)),
+    (8, 20, torch.float32, (1.0, 0.5, 1.5, 0.75, 1.25)),
+]
+
+
+@pytest.mark.parametrize("b,n_cam,cam_dtype,scales", SWIN_TTA_FUSE_SHAPES)
+def test_tta_fuse_kernel_with_the_aux_cam_on_its_own_grid(gpu, b, n_cam, cam_dtype, scales):
+    """K5 against ``plain_tta_fuse`` where the aux CAM's grid is twice as
+    fine as the last scale's, as the Swin teacher gives it; the tolerances
+    of the ViT shapes' test."""
+    _tta_fuse_vs_plain(gpu, b, n_cam, cam_dtype, scales, 32, 2)
+
+
+def _tta_fuse_vs_plain(gpu, b, n_cam, cam_dtype, scales, patch, aux_fine):
+    """K5 and ``multi_scale_camseg`` against ``plain_tta_fuse`` on maps of a
+    ``patch``-pixel grid at each scale of a 448 crop, the aux CAM's grid
+    ``aux_fine`` times as fine."""
+    from cosa_tpu_torch.kernels import tta_fuse as K
+    from cosa_tpu_torch.objectives.pseudo import multi_scale_camseg
+
+    g = torch.Generator(device=gpu).manual_seed(b * n_cam + len(scales))
+    crop = 448
+    grids = [int(s * crop) // patch for s in scales]
+    maps = [dict(cam=torch.randn((2 * b, k, k, n_cam), generator=g, device=gpu) * 4,
+                 cam_aux=torch.randn((2 * b, k * aux_fine, k * aux_fine, n_cam), generator=g,
+                                     device=gpu) * 4,
+                 seg=torch.randn((2 * b, k, k, n_cam + 1), generator=g, device=gpu) * 4)
+            for k in grids]
+    cams, segs = [m["cam"] for m in maps], [m["seg"] for m in maps]
+    before = K.LAUNCHES["tta_fuse"]
+    got = K.tta_fuse(cams, segs, maps[-1]["cam_aux"], (crop, crop), cam_dtype)
+    assert K.LAUNCHES["tta_fuse"] - before == 1
+    want = K.plain_tta_fuse(cams, segs, maps[-1]["cam_aux"], (crop, crop), cam_dtype)
+    torch.cuda.synchronize()
+    tol = 4e-3 if cam_dtype == torch.bfloat16 else 1e-6
+    for name, x, r in zip(("cam", "cam_aux"), got[:2], want[:2]):
+        assert x.dtype == torch.float32 and x.shape == r.shape == (b, crop, crop, n_cam)
+        assert float((x - r).abs().max()) <= tol, name
+    assert got[2].shape == (b, crop, crop, n_cam + 1)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=1e-4)
+
+    # multi_scale_camseg: one launch a call, the kernel's outputs
+    feed = iter(maps)
+    imgs = torch.zeros((b, crop, crop, 3), device=gpu)
+    before = K.LAUNCHES["tta_fuse"]
+    outs = multi_scale_camseg(lambda x: next(feed), imgs, scales, cam_dtype=cam_dtype)
+    assert K.LAUNCHES["tta_fuse"] - before == 1
+    assert all(torch.equal(a, r) for a, r in zip(outs, got))
