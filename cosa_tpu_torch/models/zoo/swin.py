@@ -18,7 +18,10 @@ Module and parameter names are the JAX tree's (``stage{i}_block{j}``,
 carries a JAX tree over by renaming leaves. Window attention is plain
 PyTorch, as the JAX package leaves it to XLA: its rounding follows the
 JAX order (scores in the compute dtype, then f32 for the bias, mask and
-softmax), which ``F.scaled_dot_product_attention`` would not keep.
+softmax), which ``F.scaled_dot_product_attention`` would not keep. Its
+core, from the scores to the product with v, runs under the span
+``window_attn`` (``utils/trace.py``), and :data:`WINDOW_ATTN` counts its
+calls.
 
 Stochastic depth (:class:`DropPath`) draws from the ``generator`` the
 caller passes; the train step seeds it from ``(cfg.seed, step)``.
@@ -39,6 +42,12 @@ from cosa_tpu_torch.models.decoders import LargeFOV
 from cosa_tpu_torch.models.network import cosa_heads
 from cosa_tpu_torch.models.vit import dense, layer_norm, row_dense
 from cosa_tpu_torch.parallel.tensor import copy_to_tp, group_rank, group_size
+from cosa_tpu_torch.utils.trace import span
+
+# host-side counts of WindowAttention's calls, the windows they attend
+# (batch x windows, this rank's rows) and the calls that carry a shift or
+# pad mask: plain int increments, no device sync
+WINDOW_ATTN = {"calls": 0, "windows": 0, "masked_calls": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,19 +180,23 @@ class WindowAttention(nn.Module):
         h = self.num_heads // group_size(g)
         qkv = dense(copy_to_tp(xw, g), self.qkv, self.dtype).reshape(bn, n, 3, h, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        # the scores round to the compute dtype before the f32 bias and mask
-        s = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k).float()
-        idx = _device_const(_rel_pos_index, (self.window,), xw.device)
-        table = copy_to_tp(self.rel_pos_bias, g)
-        if g is not None:
-            table = table[:, group_rank(g) * h:(group_rank(g) + 1) * h]
-        s = s + table[idx].permute(2, 0, 1)[None]
-        if mask is not None:
-            nw = mask.shape[0]
-            s = s.reshape(bn // nw, nw, h, n, n) + mask[None, :, None]
-            s = s.reshape(bn, h, n, n)
-        p = torch.softmax(s, dim=-1).to(self.dtype)
-        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(bn, n, h * hd)
+        WINDOW_ATTN["calls"] += 1
+        WINDOW_ATTN["windows"] += bn
+        WINDOW_ATTN["masked_calls"] += mask is not None
+        with span("window_attn"):
+            # the scores round to the compute dtype before the f32 bias and mask
+            s = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k).float()
+            idx = _device_const(_rel_pos_index, (self.window,), xw.device)
+            table = copy_to_tp(self.rel_pos_bias, g)
+            if g is not None:
+                table = table[:, group_rank(g) * h:(group_rank(g) + 1) * h]
+            s = s + table[idx].permute(2, 0, 1)[None]
+            if mask is not None:
+                nw = mask.shape[0]
+                s = s.reshape(bn // nw, nw, h, n, n) + mask[None, :, None]
+                s = s.reshape(bn, h, n, n)
+            p = torch.softmax(s, dim=-1).to(self.dtype)
+            o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(bn, n, h * hd)
         return row_dense(o, self.proj, self.dtype, g)
 
 

@@ -22,7 +22,9 @@ zoo's swin_tiny_test forward within 1e-4. The int8 dense on the card equal
 to the CPU's bitwise, and refused outside torch._int_mm's shapes. Two gloo
 ranks on the one card (data parallelism) against one process at the global
 batch: losses within 5e-3 relative, the same launches per rank; K1 and K2
-at tensor parallelism's local head count."""
+at tensor parallelism's local head count. A Swin-B forward's
+``window_attn`` spans (none opened untraced, 24 profiled) and its
+``WINDOW_ATTN`` counts."""
 
 import math
 
@@ -626,3 +628,38 @@ def _tta_fuse_vs_plain(gpu, b, n_cam, cam_dtype, scales, patch, aux_fine):
     outs = multi_scale_camseg(lambda x: next(feed), imgs, scales, cam_dtype=cam_dtype)
     assert K.LAUNCHES["tta_fuse"] - before == 1
     assert all(torch.equal(a, r) for a, r in zip(outs, got))
+
+
+def test_window_attn_span_and_counter_on_a_swin_b_forward(gpu, monkeypatch):
+    """models/zoo/swin.py's ``window_attn`` span and ``WINDOW_ATTN`` counter
+    on a Swin-B forward at 448 (bf16): untraced the span opens no
+    ``record_function``; under the profiler the forward names 24
+    ``window_attn`` events, one a block; the counter reads 24 calls, 12 of
+    them masked (every second block of a stage wider than one window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cosa_tpu_torch.config import preset_config
+    from cosa_tpu_torch.models.network import build_model
+    from cosa_tpu_torch.models.zoo import swin as tswin
+    from cosa_tpu_torch.utils import trace
+
+    cfg = preset_config("VOC12", model="swinend2end", backbone="swin-b")
+    net = build_model(cfg, gpu)
+    x = torch.randn((2, 448, 448, 3), generator=torch.Generator(device=gpu).manual_seed(0),
+                    device=gpu)
+    opened = []
+    real = trace.record_function
+    monkeypatch.setattr(trace, "record_function", lambda name: opened.append(name) or real(name))
+    before = dict(tswin.WINDOW_ATTN)
+    with torch.no_grad():
+        net(x)
+        torch.cuda.synchronize()
+        assert opened == []
+        assert {k: tswin.WINDOW_ATTN[k] - before[k] for k in before} == {
+            "calls": 24, "windows": 2 * (256 * 2 + 64 * 2 + 16 * 18 + 4 * 2), "masked_calls": 12}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            net(x)
+            torch.cuda.synchronize()
+    assert opened == ["window_attn"] * 24
+    host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    assert sum(e.name == "window_attn" for e in host) == 24
