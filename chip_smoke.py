@@ -7,8 +7,9 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
   1. name the card (torch, and nvidia-smi's name and power limit);
   2. build the CUDA kernels from cosa_tpu_torch/csrc with nvcc, and read
      the built SASS: K1/K2 and K4 (K1's forward with another softmax) must
-     issue wgmma and async copies, K4's bf16exp mode a bf16 exp2, and K3
-     no slow-path cosine (MUFU.COS/SIN, local memory, a call);
+     issue wgmma and async copies, K4's bf16exp mode a bf16 exp2, K3
+     no slow-path cosine (MUFU.COS/SIN, local memory, a call), and K6's
+     bf16 kernels mma.sync, ldmatrix and async copies and no local memory;
   3. hold each kernel against its plain PyTorch version at the shapes its
      paths give it (K1 also at the evaluation's token counts, K4 at the
      softmax microbenchmark's), and time kernel, plain version and one
@@ -19,7 +20,10 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      default's and the distilled student's N; K4 beside K1 at the same
      shape and block size; K3 beside a fill of its output; K5, the TTA
      fuse, at the two training cells' and the validation's shapes, one
-     launch per multi_scale_camseg call);
+     launch per multi_scale_camseg call; K6, Swin's window attention, at
+     every stage of the Swin-B cell's forwards against float64, forward
+     and backward, beside scaled_dot_product_attention with the bias and
+     mask as its attn_mask, summed per training step);
   4. train 6 steps of the default VOC configuration (ViT-B/16, crop 448,
      batch 4, bf16, RFF energy) on synthetic data through
      cosa_tpu_torch.train.loop.train, from a seeded random init (no weights
@@ -257,9 +261,22 @@ def phase_build():
     slow = {fn: ks for fn, ks in slow.items() if ks}
     if slow or len(k3) != 2:
         raise AssertionError(f"phase 2: K3 builds {sorted(k3)}, slow-path cosine in {slow}")
+    # K6: each bf16 build multiplies on mma.sync (HMMA) from ldmatrix, copies
+    # its tiles asynchronously and keeps every value in registers
+    k6 = _sass(build, "window_attn")
+    for fn, c in k6.items():
+        log(f"phase 2 sass: {fn} {c['instructions']} instructions "
+            f"{json.dumps({k: c.get(k, 0) for k in K6_OPS})}")
+    bf16 = {fn: c for fn, c in k6.items() if "_bf16<" in fn}
+    bad = [fn for fn, c in bf16.items()
+           if not (c.get("HMMA") and c.get("LDSM") and c.get("LDGSTS"))
+           or c.get("LDL") or c.get("STL")]
+    if bad or len(bf16) != 4:
+        raise AssertionError(f"phase 2: K6 bf16 builds {sorted(bf16)}, without HMMA/LDSM/"
+                             f"LDGSTS or with local memory: {bad}")
     log("phase 2 ok: every forward (K1, K4) and K2 product kernel issues HGMMA and "
         "LDGSTS/UTMALDG, bf16exp issues MUFU.EX2.BF16, K3 has no MUFU.COS/SIN, LDL, STL "
-        "or CALL")
+        "or CALL, K6's bf16 kernels issue HMMA, LDSM and LDGSTS and no LDL/STL")
 
 
 FWD_MODES = ("exact", "bf16exp", "nomax")  # attn_fwd_kernel's MODE 0, 1, 2
@@ -267,6 +284,7 @@ FLASH_OPS = ("HGMMA", "LDSM", "UTMALDG", "LDGSTS")
 K3_OPS = ("FFMA", "FMUL", "FRND", "F2FP", "LDG", "STG")
 K3_BANNED = ("MUFU.COS", "MUFU.SIN", "LDL", "STL", "CALL")
 K3_LOOP_OUTPUTS = 16  # one pass of K3's row loop: 2 rows of 8 features a thread
+K6_OPS = ("HMMA", "LDSM", "LDGSTS", "MUFU", "LDL", "STL")
 
 
 def _kernel_name(sym: str):
@@ -274,6 +292,9 @@ def _kernel_name(sym: str):
     attn_fwd_kernel<queries per block,mode>, rff_phi_kernel<store>."""
     import re
 
+    k6 = re.search(r"\d(winattn_[a-z0-9_]+)(?:ILi(\d+)E)?", sym)
+    if k6:  # K6: winattn_<pass>_<type><padded head width>
+        return k6.group(1) + (f"<{k6.group(2)}>" if k6.group(2) else "")
     m = re.search(r"\d((?:attn_[a-z_]+?|rff_phi)_kernel)"
                   r"(?:I((?:Li\d+E|13__nv_bfloat16|f)+)E)?", sym)
     if not m:
@@ -593,6 +614,9 @@ def phase_kernels():
     # ---- K5, the TTA fuse, at the three cells' shapes
     _k5_tta_fuse(rows, failures)
 
+    # ---- K6, Swin's window attention, at the Swin-B cell's shapes
+    _k6_window_attn(rows, failures)
+
     # ---- K4, the two softmax variants, at the microbenchmark's B*H = 96,
     # each beside K1 at the same shape and block size
     bv = 8
@@ -648,7 +672,8 @@ def phase_kernels():
         "masked and not, and at every distilled and pseudo (B*H, N); K2 dq/dk/dv rel "
         "err < 1e-2 (N 785, 197, 786); K3 max err vs f64 < 3e-4 "
         "(bf16), < 1e-5 (f32); K4 max err <= 1e-2 and cos vs K1 >= 0.9999 "
-        f"({json.dumps(k4)})")
+        f"({json.dumps(k4)}); K5 at its shapes; K6 within 1.1x the plain bf16 error "
+        "against f64 + 1e-4 at every Swin-B stage")
     return rows
 
 
@@ -727,6 +752,147 @@ def _k5_tta_fuse(rows: list, failures: list) -> None:
         torch.cuda.empty_cache()
 
 
+# K6's shapes: the Swin-B cell's forwards at crop 448, (what, images, crop,
+# with a backward): the student's batch and the teacher's images and flips
+# at each TTA scale; each of the four stages (grid crop/4/2^s, 4 x 2^s
+# heads of 32, window 7) runs its blocks, every second one shifted (masked)
+# where the stage is wider than one window
+K6_FORWARDS = (("student", 4, 448, True), ("teacher 224", 8, 224, False),
+               ("teacher 448", 8, 448, False), ("teacher 672", 8, 672, False))
+K6_DEPTHS = (2, 2, 18, 2)
+
+
+def _k6_window_attn(rows: list, failures: list) -> None:
+    """K6 at every stage of the Swin-B cell's forwards, unmasked and with
+    the shift mask: its output and its gradients (dq, dk, dv, the table's)
+    against float64 within 1.1x the plain bf16 version's error plus 1e-4
+    (tests/test_torch_cuda.py gives the reason), two backwards equal bit for
+    bit; kernel, plain and bound times forward (the bound: q, k, v and o in
+    bf16, the table and the mask, each once, at 3.35 TB/s) and, for the
+    student, backward (the bound: q, k, v, do and dqkv in bf16, the rows'
+    max and sum, the table and the mask, the table gradient's per-window
+    partials written and read, and the table's gradient), and
+    scaled_dot_product_attention with the bias and mask as a materialized
+    attn_mask (the yardstick only: the port never calls it). Sums the times over a training step's 96 forwards and 24
+    backwards; a row per student stage and direction."""
+    import torch
+    import torch.nn.functional as F
+
+    from cosa_tpu_torch.kernels import window_attn as wk
+    from cosa_tpu_torch.models.zoo.swin import _shift_mask
+
+    def outputs(fn, qkv, table, m, cot):
+        x, t = qkv.clone().requires_grad_(True), table.clone().requires_grad_(True)
+        o = fn(x, t, 7, m)
+        dx, dt = torch.autograd.grad(o, (x, t), cot.to(o.dtype))
+        return [o.detach(), dx[:, :, 0], dx[:, :, 1], dx[:, :, 2], dt]
+
+    def rel(a, ref):
+        return float((a.double() - ref).abs().max() / ref.abs().max())
+
+    step = {k: 0.0 for k in ("fwd", "plain_fwd", "sdpa_fwd", "bound", "bwd", "plain_bwd",
+                             "sdpa_bwd", "bwd_bound")}
+    worst = 0.0  # the largest error over the plain version's, a ratio
+    for what, images, crop, grad in K6_FORWARDS:
+        for stage, depth in enumerate(K6_DEPTHS):
+            grid = crop // 4 // 2 ** stage
+            shifted = grid > 7
+            nw, h = (-(-grid // 7)) ** 2, 4 * 2 ** stage
+            bn = images * nw
+            g = torch.Generator(device="cuda").manual_seed(crop + stage)
+            qkv = torch.randn((bn, 49, 3, h, 32), generator=g, device="cuda").to(torch.bfloat16)
+            table = torch.randn((169, h), generator=g, device="cuda")
+            cot = torch.randn((bn, 49, h * 32), generator=g, device="cuda").to(torch.bfloat16)
+            mask = (torch.from_numpy(_shift_mask(grid, grid, 7, 3, grid, grid)).cuda()
+                    if shifted else None)
+            blocks = ((None, depth // 2), (mask, depth // 2)) if shifted else ((None, depth),)
+            for m, count in blocks:
+                got = outputs(wk.window_attention, qkv, table, m, cot)
+                plain = outputs(wk.plain_window_attention, qkv, table, m, cot)
+                ref = outputs(lambda x, t, w, m: wk.plain_window_attention(
+                    x.double(), t, w, m, torch.float64), qkv, table, m, cot)
+                again = outputs(wk.window_attention, qkv, table, m, cot)
+                errs = {}
+                for name, a, p, r in zip(("o", "dq", "dk", "dv", "dtable"), got, plain, ref):
+                    errs[name] = (rel(a, r), rel(p, r))
+                    worst = max(worst, errs[name][0] / errs[name][1])
+                    if not errs[name][0] <= 1.1 * errs[name][1] + 1e-4:
+                        failures.append(f"K6 {what} stage {stage} masked {m is not None} "
+                                        f"{name}: {errs[name]}")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    failures.append(f"K6 {what} stage {stage}: two backwards differ")
+                del got, plain, ref, again
+                # the yardstick: sdpa on (bn, h, n, hd) with bias + mask as attn_mask
+                q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+                am = table[wk._index(7, qkv.device)].permute(2, 0, 1)[None]
+                if m is not None:
+                    am = (am.reshape(1, 1, h, 49, 49) + m[None, :, None]).expand(
+                        images, nw, h, 49, 49).reshape(bn, h, 49, 49)
+                am = am.expand(bn, h, 49, 49).to(torch.bfloat16).contiguous()
+                nbytes = 4 * bn * h * 49 * 32 * 2 + table.numel() * 4 + (
+                    0 if m is None else m.numel() * 4)
+                bms, by = bound_ms(nbytes, 4.0 * bn * h * 49 * 49 * 32, PEAK_BF16)
+                # the backward recomputes s, then dv, dp, dq and dk: five products
+                bwd_bytes = 7 * bn * h * 49 * 32 * 2 + bn * h * 49 * 2 * 4 + table.numel() * 4 \
+                    + (0 if m is None else m.numel() * 4) + 2 * bn * h * 169 * 4 + 169 * h * 4
+                bwd_bms, bwd_by = bound_ms(bwd_bytes, 10.0 * bn * h * 49 * 49 * 32, PEAK_BF16)
+                t = dict(
+                    fwd=time_ms(lambda: wk.window_attn_fwd(qkv, table, 7, m)),
+                    plain_fwd=time_ms(lambda: wk.plain_window_attention(qkv, table, 7, m)),
+                    sdpa_fwd=time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=am, scale=32 ** -0.5)))
+                if grad:
+                    # a library backward is timed with its forward in one graph
+                    # (autograd runs it on the forward's stream), less the forward
+                    _, stats = wk.window_attn_fwd(qkv, table, 7, m, save=True)
+                    xp = qkv.clone().requires_grad_(True)
+                    qs = [x.requires_grad_(True) for x in (q, k, v)]
+                    cs = cot.reshape(bn, 49, h, 32).transpose(1, 2).contiguous()
+                    t.update(
+                        bwd=time_ms(lambda: wk.window_attn_bwd(qkv, table, 7, m, stats, cot)),
+                        plain_bwd=time_ms(lambda: torch.autograd.grad(
+                            wk.plain_window_attention(xp, table, 7, m), xp, cot))
+                        - t["plain_fwd"],
+                        sdpa_bwd=time_ms(lambda: torch.autograd.grad(
+                            F.scaled_dot_product_attention(*qs, attn_mask=am, scale=32 ** -0.5),
+                            qs, cs)) - t["sdpa_fwd"])
+                for key in t:
+                    step[key] += count * t[key]
+                step["bound"] += count * bms
+                back = ""
+                if grad:
+                    step["bwd_bound"] += count * bwd_bms
+                    back = (f"backward bound {bwd_bms:.4f} ms ({bwd_by}), "
+                            f"{bwd_bms / t['bwd']:.3f} of it; ")
+                log(f"  K6 {what} stage {stage} (B*nW={bn}, heads {h}, masked "
+                    f"{m is not None}, {count} a step): "
+                    f"{json.dumps({k: round(v, 4) for k, v in t.items()})} ms, bound "
+                    f"{bms:.4f} ms ({by}), {bms / t['fwd']:.3f} of it forward; {back}"
+                    f"err vs f64 (kernel, plain) "
+                    f"{json.dumps({k: [float(f'{x:.3e}') for x in e] for k, e in errs.items()})}")
+                if grad and m is not None:
+                    for name in ("fwd", "bwd"):
+                        rows.append(dict(
+                            name=f"window_attn_{name}", route="cuda",
+                            source="cosa_tpu_torch/csrc/window_attn.cu",
+                            replaces="none (XLA ran cosa_tpu/models/zoo/swin.py:107-127)",
+                            shape=f"{what} stage {stage}: B*nW={bn} h={h} n=49 hd=32 bf16, "
+                                  f"shift mask",
+                            max_abs_err=max(e[0] for e in errs.values()), ms=t[name],
+                            plain_ms=t[f"plain_{name}"],
+                            bound_ms=bms if name == "fwd" else bwd_bms,
+                            bound_by=by if name == "fwd" else bwd_by,
+                            library_ms=t[f"sdpa_{name}"]))
+                del q, k, v, am
+            del qkv, table, cot, mask
+            torch.cuda.empty_cache()
+    log(f"  K6 per training step (96 forwards, 24 backwards): "
+        f"{json.dumps({k: round(v, 4) for k, v in step.items()})} ms; forward "
+        f"{step['bound'] / step['fwd']:.3f} of its bound, backward "
+        f"{step['bwd_bound'] / step['bwd']:.3f} of its bound; worst error over the plain "
+        f"version's {worst:.4f}")
+
+
 def phase_opt_in_ops(smi: str):
     """The opt-in path's torch ops at its shapes, eager, by CUDA events,
     each beside the least time its bytes take at 3.35 TB/s (inputs read
@@ -788,9 +954,10 @@ def _main_cfg(**kw):
 
 
 def _launch_dicts():
-    from cosa_tpu_torch.kernels import flash, flash_variants, rff, tta_fuse
+    from cosa_tpu_torch.kernels import flash, flash_variants, rff, tta_fuse, window_attn
 
-    return flash.LAUNCHES, rff.LAUNCHES, flash_variants.LAUNCHES, tta_fuse.LAUNCHES
+    return (flash.LAUNCHES, rff.LAUNCHES, flash_variants.LAUNCHES, tta_fuse.LAUNCHES,
+            window_attn.LAUNCHES)
 
 
 def _counts():
@@ -1644,6 +1811,7 @@ def phase_zoo(smi: str, root: str):
     from cosa_tpu_torch.eval.engine import score_names
     from cosa_tpu_torch.models.network import build_model, init_params
     from cosa_tpu_torch.models.zoo.resnet import BatchNorm
+    from cosa_tpu_torch.models.zoo.swin import WINDOW_ATTN
 
     pre = os.path.join(ROOT, "build", "chip_smoke", "pretrained_swin.pth")
     cfg = _optin_cfg(root, name="swin", model="swinend2end", backbone="swin-b",
@@ -1669,17 +1837,20 @@ def phase_zoo(smi: str, root: str):
 
     def run(tag, fn, **want):
         _reset_counts()
+        calls = WINDOW_ATTN["calls"]
         res = fn()
         torch.cuda.synchronize()
         counts[tag] = _counts()
-        if counts[tag] != _want(**want):
+        # K6 runs every window attention: a forward launch a call
+        want["window_attn_fwd"] = WINDOW_ATTN["calls"] - calls
+        if counts[tag] != _want(**want) or not want["window_attn_fwd"]:
             raise AssertionError(f"phase 12 {tag}: launch counts {counts[tag]} != {_want(**want)}")
         return res
 
     torch.cuda.reset_peak_memory_stats()
     with _patched(loop_mod, "load_pretrained_into_state", checking):
         res = run("swin", lambda: loop_mod.train(cfg, device="cuda"), rff_phi=4 + 2,
-                  tta_fuse=4 + 2 * val_batches)
+                  tta_fuse=4 + 2 * val_batches, window_attn_bwd=24 * 4)
     peak = torch.cuda.max_memory_allocated()
     if loaded != [True, True]:
         raise AssertionError(f"phase 12: pretrained backbone in student, teacher: {loaded}")
@@ -1714,7 +1885,7 @@ def phase_zoo(smi: str, root: str):
         f"{json.dumps({k: round(fin[k]['miou'], 6) for k in score_names(fin)})}, on {smi}")
 
     resumed = run("swin_resume", lambda: loop_mod.train(cfg_r, device="cuda"), rff_phi=2 + 2,
-                  tta_fuse=2 + val_batches)
+                  tta_fuse=2 + val_batches, window_attn_bwd=24 * 2)
     if [r["iter"] for r in resumed["records"]] != [3, 4]:
         raise AssertionError(f"phase 12 resume: steps {[r['iter'] for r in resumed['records']]}")
     straight = {r["iter"]: r for r in recs}
@@ -1729,6 +1900,7 @@ def phase_zoo(smi: str, root: str):
         f"losses (bound 5e-3)")
 
     _reset_counts()
+    calls, cpu_calls = WINDOW_ATTN["calls"], 0
     x_tiny = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
     x_big = torch.from_numpy(
         np.random.default_rng(1).standard_normal((2, 512, 512, 3)).astype(np.float32)).cuda()
@@ -1737,7 +1909,9 @@ def phase_zoo(smi: str, root: str):
         init_params(m, torch.Generator().manual_seed(0))
         card = copy.deepcopy(m).cuda()
         with torch.no_grad():
+            before = WINDOW_ATTN["calls"]
             ref = _outputs(m(torch.from_numpy(x_tiny), **kw))
+            cpu_calls += WINDOW_ATTN["calls"] - before
             got = _outputs(card(torch.from_numpy(x_tiny).cuda(), **kw))
         tiny_err = max(float((g.cpu() - r).abs().max()) for g, r in zip(got, ref))
         if not tiny_err <= 1e-4:
@@ -1772,10 +1946,13 @@ def phase_zoo(smi: str, root: str):
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     counts["seg_only"] = _counts()
-    if counts["seg_only"] != _want():
+    # UPerSwin's window attentions on the card (tiny in f32, Swin-B in bf16)
+    # through K6; the CPU's through the plain version
+    if counts["seg_only"] != _want(window_attn_fwd=WINDOW_ATTN["calls"] - calls - cpu_calls):
         raise AssertionError(f"phase 12 seg-only: launch counts {counts['seg_only']}")
     log("phase 12 ok: Swin-B from its mmseg file, K3 once a step, K5 once a step and an "
-        "eval batch, no K1/K2; validations, "
+        "eval batch, K6 once a window attention and its backward 24 times a step, no K1/K2; "
+        "validations, "
         "final eval and resume; every seg-only family finite at its published width and "
         "within 1e-4 of the CPU at its tiny config")
     return counts

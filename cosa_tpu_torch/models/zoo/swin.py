@@ -6,22 +6,23 @@ Port of the JAX package's models/zoo/swin.py (the reference's vestigial
 mmcv-free). NHWC throughout, as there:
 
   * the window partition is a reshape + permute;
-  * the relative-position index and the shifted-window / padding mask are
-    computed with numpy once per static shape and cached on the device
-    (they are constants, not buffers: the state dict's keys stay the JAX
-    tree's leaves);
+  * the relative-position index (kernels/window_attn.py) and the
+    shifted-window / padding mask are computed with numpy once per static
+    shape and cached on the device (they are constants, not buffers: the
+    state dict's keys stay the JAX tree's leaves);
   * inputs are padded up to window multiples and pad keys are masked with
     the same additive -1e4 mask as the shifted windows.
 
 Module and parameter names are the JAX tree's (``stage{i}_block{j}``,
 ``merge{i}``, ``attn.rel_pos_bias``, ...), so ``state_dict_from_jax``
-carries a JAX tree over by renaming leaves. Window attention is plain
-PyTorch, as the JAX package leaves it to XLA: its rounding follows the
-JAX order (scores in the compute dtype, then f32 for the bias, mask and
-softmax), which ``F.scaled_dot_product_attention`` would not keep. Its
-core, from the scores to the product with v, runs under the span
-``window_attn`` (``utils/trace.py``), and :data:`WINDOW_ATTN` counts its
-calls.
+carries a JAX tree over by renaming leaves. The window attention's core,
+from the scores through the bias, the mask and the softmax to the product
+with v, is kernel K6 on the card and its plain version on the CPU
+(``kernels/window_attn.py``); both round in the JAX order (scores in the
+compute dtype, then f32 for the bias, mask and softmax), which
+``F.scaled_dot_product_attention`` would not keep. The core runs under the
+span ``window_attn`` (``utils/trace.py``), and :data:`WINDOW_ATTN` counts
+its calls.
 
 Stochastic depth (:class:`DropPath`) draws from the ``generator`` the
 caller passes; the train step seeds it from ``(cfg.seed, step)``.
@@ -38,6 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cosa_tpu_torch.kernels.window_attn import window_attention
 from cosa_tpu_torch.models.decoders import LargeFOV
 from cosa_tpu_torch.models.network import cosa_heads
 from cosa_tpu_torch.models.vit import dense, layer_norm, row_dense
@@ -82,15 +84,6 @@ SWIN_CONFIGS = {
                                num_heads=(2, 2, 4, 8), window=4,
                                drop_path_rate=0.0),
 }
-
-
-def _rel_pos_index(w: int) -> np.ndarray:
-    """(w^2, w^2) index into the (2w-1)^2 relative-position bias table."""
-    coords = np.stack(np.meshgrid(np.arange(w), np.arange(w), indexing="ij"))
-    flat = coords.reshape(2, -1)
-    rel = flat[:, :, None] - flat[:, None, :]  # (2, w^2, w^2)
-    rel = rel.transpose(1, 2, 0) + (w - 1)
-    return (rel[..., 0] * (2 * w - 1) + rel[..., 1]).astype(np.int64)
 
 
 def _shift_mask(hp: int, wp: int, w: int, shift: int,
@@ -179,24 +172,14 @@ class WindowAttention(nn.Module):
         hd = c // self.num_heads
         h = self.num_heads // group_size(g)
         qkv = dense(copy_to_tp(xw, g), self.qkv, self.dtype).reshape(bn, n, 3, h, hd)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         WINDOW_ATTN["calls"] += 1
         WINDOW_ATTN["windows"] += bn
         WINDOW_ATTN["masked_calls"] += mask is not None
         with span("window_attn"):
-            # the scores round to the compute dtype before the f32 bias and mask
-            s = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k).float()
-            idx = _device_const(_rel_pos_index, (self.window,), xw.device)
             table = copy_to_tp(self.rel_pos_bias, g)
             if g is not None:
                 table = table[:, group_rank(g) * h:(group_rank(g) + 1) * h]
-            s = s + table[idx].permute(2, 0, 1)[None]
-            if mask is not None:
-                nw = mask.shape[0]
-                s = s.reshape(bn // nw, nw, h, n, n) + mask[None, :, None]
-                s = s.reshape(bn, h, n, n)
-            p = torch.softmax(s, dim=-1).to(self.dtype)
-            o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(bn, n, h * hd)
+            o = window_attention(qkv, table, self.window, mask)
         return row_dense(o, self.proj, self.dtype, g)
 
 

@@ -113,9 +113,10 @@ def allreduce_worker(rank: int, numel: int, device, reps: int = 5) -> Dict[str, 
 
 
 def _launches() -> Dict[str, int]:
-    from cosa_tpu_torch.kernels import flash, flash_variants, rff, tta_fuse
+    from cosa_tpu_torch.kernels import flash, flash_variants, rff, tta_fuse, window_attn
 
-    return {**flash.LAUNCHES, **rff.LAUNCHES, **flash_variants.LAUNCHES, **tta_fuse.LAUNCHES}
+    return {**flash.LAUNCHES, **rff.LAUNCHES, **flash_variants.LAUNCHES, **tta_fuse.LAUNCHES,
+            **window_attn.LAUNCHES}
 
 
 def train_worker(rank: int, cfgs: Sequence, device=None) -> List[Dict]:

@@ -30,7 +30,8 @@ of the card by the innermost span open at its middle: the traced run's
   models/zoo/swin.py::WindowAttention (one a Swin block: 24 a Swin-B forward)
     window_attn       the attention core, from the scores through the
                       bias, the mask and the softmax to the product with v
-                      (not qkv or proj): ``window_attn_device_ms.train``,
+                      (not qkv or proj; K6's forward on the card,
+                      kernels/window_attn.py): ``window_attn_device_ms.train``,
                       ``window_attn_fwd_roofline.train``
   eval/engine.py (one each a batch; ``eval_dump`` with files to write)
     eval_load         the batch's dataset reads: ``load_idle_ms.eval``

@@ -23,8 +23,14 @@ to the CPU's bitwise, and refused outside torch._int_mm's shapes. Two gloo
 ranks on the one card (data parallelism) against one process at the global
 batch: losses within 5e-3 relative, the same launches per rank; K1 and K2
 at tensor parallelism's local head count. A Swin-B forward's
-``window_attn`` spans (none opened untraced, 24 profiled) and its
-``WINDOW_ATTN`` counts."""
+``window_attn`` spans (none opened untraced, 24 profiled, K6's kernels
+launched inside them) and its ``WINDOW_ATTN`` counts, equal to K6's
+launches. K6 (Swin's window attention) at every stage of the Swin-B cell's
+forwards and on a padded grid: each output and gradient within 1.1x the
+plain bf16 version's error against float64 plus 1e-4; against the plain
+bf16 version within 2^-7 with at most one value in 1000 different, its
+table gradient within 1e-4 and bitwise repeatable; in f32 within 1e-5 of
+the plain f32 version."""
 
 import math
 
@@ -536,7 +542,8 @@ def test_gloo_dp2_on_one_card_matches_one_process(gpu):
     ranks = spawn(steps_worker, 2, preset_config("synthetic", batch_size=2, dp=2, **kw),
                   "cuda:0", init, batches)
     assert one["launches"] == {"flash_fwd": 2 * 48, "flash_bwd": 2 * 12, "rff_phi": 2,
-                               "flash_fwd_bf16exp": 0, "flash_fwd_nomax": 0, "tta_fuse": 2}
+                               "flash_fwd_bf16exp": 0, "flash_fwd_nomax": 0, "tta_fuse": 2,
+                               "window_attn_fwd": 0, "window_attn_bwd": 0}
     for out in ranks:
         assert out["launches"] == one["launches"]
         for got, want in zip(out["metrics"], one["metrics"]):
@@ -630,15 +637,22 @@ def _tta_fuse_vs_plain(gpu, b, n_cam, cam_dtype, scales, patch, aux_fine):
     assert all(torch.equal(a, r) for a, r in zip(outs, got))
 
 
-def test_window_attn_span_and_counter_on_a_swin_b_forward(gpu, monkeypatch):
+def test_window_attn_span_and_counter_on_a_swin_b_forward(gpu, monkeypatch, tmp_path):
     """models/zoo/swin.py's ``window_attn`` span and ``WINDOW_ATTN`` counter
     on a Swin-B forward at 448 (bf16): untraced the span opens no
     ``record_function``; under the profiler the forward names 24
-    ``window_attn`` events, one a block; the counter reads 24 calls, 12 of
-    them masked (every second block of a stage wider than one window)."""
+    ``window_attn`` events, one a block, and K6's 24 forward kernels were
+    each launched inside one of them; the counter reads 24 calls, 12 of
+    them masked (every second block of a stage wider than one window). K6
+    runs every call: its forward launches equal the counter's calls, and a
+    forward with gradients and its backward launch the backward kernel
+    once a block."""
+    import json
+
     from torch.profiler import ProfilerActivity, profile
 
     from cosa_tpu_torch.config import preset_config
+    from cosa_tpu_torch.kernels import window_attn as wk
     from cosa_tpu_torch.models.network import build_model
     from cosa_tpu_torch.models.zoo import swin as tswin
     from cosa_tpu_torch.utils import trace
@@ -651,15 +665,198 @@ def test_window_attn_span_and_counter_on_a_swin_b_forward(gpu, monkeypatch):
     real = trace.record_function
     monkeypatch.setattr(trace, "record_function", lambda name: opened.append(name) or real(name))
     before = dict(tswin.WINDOW_ATTN)
+    launched = dict(wk.LAUNCHES)
     with torch.no_grad():
         net(x)
         torch.cuda.synchronize()
         assert opened == []
         assert {k: tswin.WINDOW_ATTN[k] - before[k] for k in before} == {
             "calls": 24, "windows": 2 * (256 * 2 + 64 * 2 + 16 * 18 + 4 * 2), "masked_calls": 12}
+        assert {k: wk.LAUNCHES[k] - launched[k] for k in launched} == {
+            "window_attn_fwd": 24, "window_attn_bwd": 0}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             net(x)
             torch.cuda.synchronize()
     assert opened == ["window_attn"] * 24
     host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
     assert sum(e.name == "window_attn" for e in host) == 24
+    # each K6 forward kernel's launch lies inside a window_attn span
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ev = json.loads(path.read_text())["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+             if e.get("cat") == "user_annotation" and e.get("name") == "window_attn"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in ev
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    k6 = [launch.get(e["args"].get("correlation")) for e in ev
+          if e.get("cat") == "kernel" and "winattn_fwd" in e.get("name", "")]
+    assert len(spans) == 24 and len(k6) == 24
+    assert all(t is not None and any(a <= t <= b for a, b in spans) for t in k6)
+
+    launched = dict(wk.LAUNCHES)
+    y = net(x, train=True, generator=torch.Generator(device=gpu).manual_seed(1))
+    sum(v.float().sum() for v in y.values() if v.requires_grad).backward()
+    torch.cuda.synchronize()
+    assert {k: wk.LAUNCHES[k] - launched[k] for k in launched} == {
+        "window_attn_fwd": 24, "window_attn_bwd": 24}
+
+
+# The window-attention calls of the Swin-B cell (crop 448): (what, images,
+# crop) of each forward (the student's batch, the teacher's images and
+# their flips at each TTA scale), and a padded grid (a 500 x 400 image's
+# stage 0 at window 7); head width 32, window 7, heads 4 x 2^stage
+K6_FORWARDS = [("student", 4, 448), ("teacher", 8, 224), ("teacher", 8, 448),
+               ("teacher", 8, 672)]
+
+
+def _k6_case(gpu, images, grid, stage, seed, hw=None):
+    """Seeded bf16 qkv, an f32 table (std 1, so the bias matters) and the
+    block's shift or pad mask (None where the stage is one window) for the
+    stage's grid; ``hw`` a ragged (h, w) grid padded to whole windows."""
+    from cosa_tpu_torch.models.zoo.swin import _shift_mask
+
+    hh, ww = hw or (grid, grid)
+    hp, wp = -(-hh // 7) * 7, -(-ww // 7) * 7
+    shift = 3 if min(hp, wp) > 7 else 0
+    mask = None
+    if shift or (hp, wp) != (hh, ww):
+        mask = torch.from_numpy(_shift_mask(hp, wp, 7, shift, hh, ww)).to(gpu)
+    bn, h = images * (hp // 7) * (wp // 7), 4 * 2 ** stage
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    qkv = torch.randn((bn, 49, 3, h, 32), generator=g, device=gpu).to(torch.bfloat16)
+    table = torch.randn((169, h), generator=g, device=gpu)
+    cot = torch.randn((bn, 49, h * 32), generator=g, device=gpu).to(torch.bfloat16)
+    return qkv, table, mask, cot
+
+
+def _k6_outputs(fn, qkv, table, mask, cot):
+    """(o, dq, dk, dv, dtable) of ``fn`` through autograd."""
+    x = qkv.clone().requires_grad_(True)
+    t = table.clone().requires_grad_(True)
+    o = fn(x, t, 7, mask)
+    dx, dt = torch.autograd.grad(o, (x, t), cot.to(o.dtype))
+    return [o.detach(), dx[:, :, 0], dx[:, :, 1], dx[:, :, 2], dt]
+
+
+def _k6_f64(qkv, table, window, mask):
+    """The plain version in float64 throughout, with no rounding."""
+    from cosa_tpu_torch.kernels import window_attn as wk
+
+    return wk.plain_window_attention(qkv.double(), table, window, mask, torch.float64)
+
+
+def _rel_err(a, ref) -> float:
+    return float((a.double() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("what,images,crop", K6_FORWARDS)
+@pytest.mark.parametrize("stage", range(4))
+def test_window_attn_kernel_against_float64(gpu, what, images, crop, stage):
+    """K6 (forward and backward) against the float64 version at one stage of
+    one of the cell's forwards, unmasked and with the stage's shift mask,
+    on the plain bf16 version's own error: each of o, dq, dk, dv and the
+    table's gradient within 1.1x the plain version's largest error against
+    float64 (relative to the reference's largest magnitude), plus 1e-4.
+    K6 rounds where the plain version rounds (the scores, p and each
+    product to bf16, the softmax in f32), so the two share their error
+    against float64 (measured equal on an H100); what is left is the f32
+    summation order of the products, which moves a bf16 rounding by one
+    step in about one value in 20000."""
+    from cosa_tpu_torch.kernels import window_attn as wk
+
+    grid = crop // 4 // 2 ** stage
+    qkv, table, mask, cot = _k6_case(gpu, images, grid, stage, seed=crop + stage)
+    for m in ([None, mask] if mask is not None else [None]):
+        got = _k6_outputs(wk.window_attention, qkv, table, m, cot)
+        plain = _k6_outputs(wk.plain_window_attention, qkv, table, m, cot)
+        ref = _k6_outputs(_k6_f64, qkv, table, m, cot)
+        for name, a, p, r in zip(("o", "dq", "dk", "dv", "dtable"), got, plain, ref):
+            err, tol = _rel_err(a, r), 1.1 * _rel_err(p, r) + 1e-4
+            assert err <= tol, (name, m is not None, err, tol)
+
+
+def test_window_attn_kernel_on_a_padded_grid(gpu):
+    """K6 against float64 where the grid is padded to whole windows (a 500 x
+    400 image's stage 0, 125 x 100 patches) under the shifted blocks' mask
+    and the pad mask alone: the tolerances of the cell's shapes."""
+    from cosa_tpu_torch.kernels import window_attn as wk
+
+    for shifted in (True, False):
+        qkv, table, mask, cot = _k6_case(gpu, 2, 0, 0, seed=5, hw=(125, 100))
+        if not shifted:
+            from cosa_tpu_torch.models.zoo.swin import _shift_mask
+
+            mask = torch.from_numpy(_shift_mask(126, 105, 7, 0, 125, 100)).to(gpu)
+        got = _k6_outputs(wk.window_attention, qkv, table, mask, cot)
+        plain = _k6_outputs(wk.plain_window_attention, qkv, table, mask, cot)
+        ref = _k6_outputs(_k6_f64, qkv, table, mask, cot)
+        for name, a, p, r in zip(("o", "dq", "dk", "dv", "dtable"), got, plain, ref):
+            err, tol = _rel_err(a, r), 1.1 * _rel_err(p, r) + 1e-4
+            assert err <= tol, (name, shifted, err, tol)
+
+
+@pytest.mark.parametrize("stage", range(4))
+def test_window_attn_kernel_matches_plain_bf16(gpu, stage):
+    """K6 against the plain bf16 version at the student's four stages (the
+    shifted blocks): o, dq, dk and dv within two bf16 steps (2^-7) of the
+    plain values' largest magnitude, at most one value in 1000 different
+    (measured one in 20000: the products' f32 sums run in another order and
+    move a rounding), the table's gradient within 1e-4 relative (f32 sums
+    over every window, in another order); a second backward gives the same
+    bits (the table's gradient is summed in a fixed order), and so does the
+    table slice of a tensor-parallel rank."""
+    from cosa_tpu_torch.kernels import window_attn as wk
+
+    grid = 448 // 4 // 2 ** stage
+    qkv, table, mask, cot = _k6_case(gpu, 4, grid, stage, seed=stage)
+    got = _k6_outputs(wk.window_attention, qkv, table, mask, cot)
+    plain = _k6_outputs(wk.plain_window_attention, qkv, table, mask, cot)
+    for name, a, p in zip(("o", "dq", "dk", "dv"), got, plain):
+        assert _rel_err(a, p.double()) <= 2 ** -7, name
+        assert int((a != p).sum()) <= a.numel() // 1000, name
+    assert _rel_err(got[4], plain[4].double()) <= 1e-4
+    again = _k6_outputs(wk.window_attention, qkv, table, mask, cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    # a rank's heads: the replicated table's column slice, its gradient
+    # scattered back into the whole table
+    h = table.shape[1]
+    wide = torch.randn((169, 2 * h), generator=torch.Generator(device=gpu).manual_seed(9),
+                       device=gpu).requires_grad_(True)
+    o = wk.window_attention(qkv, wide[:, h:], 7, mask)
+    (dwide,) = torch.autograd.grad(o, wide, cot)
+    x = qkv.clone().requires_grad_(True)
+    t = wide.detach()[:, h:].contiguous().requires_grad_(True)
+    o2 = wk.window_attention(x, t, 7, mask)
+    (dt,) = torch.autograd.grad(o2, t, cot)
+    assert torch.equal(o, o2) and torch.equal(dwide[:, h:], dt)
+    assert not dwide[:, :h].any()
+
+
+@pytest.mark.parametrize("w,heads,hd", [(4, 1, 16), (4, 2, 8), (7, 4, 32), (8, 2, 24)])
+def test_window_attn_kernel_in_f32(gpu, w, heads, hd):
+    """K6's f32 storage (products on the CUDA cores in full f32) against the
+    plain f32 version on the card (TF32 off): o and the gradients within
+    1e-5 of each one's largest magnitude, the f32 sums' order alone apart
+    (measured up to 5e-7)."""
+    from cosa_tpu_torch.kernels import window_attn as wk
+    from cosa_tpu_torch.models.zoo.swin import _shift_mask
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    grid = 2 * w
+    mask = torch.from_numpy(_shift_mask(grid, grid, w, w // 2, grid, grid)).to(gpu)
+    g = torch.Generator(device=gpu).manual_seed(w * hd)
+    qkv = torch.randn((8, w * w, 3, heads, hd), generator=g, device=gpu)
+    table = torch.randn(((2 * w - 1) ** 2, heads), generator=g, device=gpu)
+    cot = torch.randn((8, w * w, heads * hd), generator=g, device=gpu)
+    for m in (None, mask):
+        x, t = qkv.clone().requires_grad_(True), table.clone().requires_grad_(True)
+        o = wk.window_attention(x, t, w, m)
+        got = [o.detach(), *torch.autograd.grad(o, (x, t), cot)]
+        x, t = qkv.clone().requires_grad_(True), table.clone().requires_grad_(True)
+        o = wk.plain_window_attention(x, t, w, m)
+        want = [o.detach(), *torch.autograd.grad(o, (x, t), cot)]
+        for a, r in zip(got, want):
+            assert a.dtype == torch.float32
+            assert _rel_err(a, r.double()) <= 1e-5

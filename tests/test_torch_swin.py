@@ -112,6 +112,81 @@ def test_window_attention_matches_jax(masked, dt):
     _close(ours, ref, dt)
 
 
+def _former_window_chain(qkv, table, window, mask, dtype):
+    """WindowAttention's core as the module ran it inline before it moved to
+    kernels/window_attn.py, with the JAX package's index."""
+    bn, n, _, h, hd = qkv.shape
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k).float()
+    idx = torch.from_numpy(jswin._rel_pos_index(window))
+    s = s + table[idx].permute(2, 0, 1)[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        s = s.reshape(bn // nw, nw, h, n, n) + mask[None, :, None]
+        s = s.reshape(bn, h, n, n)
+    p = torch.softmax(s, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(bn, n, h * hd)
+
+
+# (mask, table heads, this rank's heads): the shift mask of an 8 x 8 grid,
+# the pad mask of a 7 x 6 grid padded to 8 x 8, and a tensor-parallel
+# rank's slice (heads 2-3 of 4) of the replicated table
+WINDOW_CASES = {"nomask": (None, 2, slice(0, 2)), "shift": ((8, 8, 4, 2, 8, 8), 2, slice(0, 2)),
+                "pad": ((8, 8, 4, 0, 7, 6), 2, slice(0, 2)),
+                "tp": ((8, 8, 4, 2, 8, 8), 4, slice(2, 4))}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_plain_window_attention_equals_the_former_inline_chain(case, dt):
+    """The CPU path of ``kernels/window_attn.window_attention`` (its plain
+    version) equals the chain WindowAttention ran inline, bit for bit: the
+    output and the gradients of qkv and of the whole table."""
+    from cosa_tpu_torch.kernels import window_attn as wk
+
+    tdt = DTYPES[dt][1]
+    margs, heads, cols = WINDOW_CASES[case]
+    w, hd = 4, 8
+    h = cols.stop - cols.start
+    mask = None if margs is None else torch.from_numpy(tswin._shift_mask(*margs))
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.standard_normal((2 * 4, w * w, 3, h, hd)).astype(np.float32))
+    table = torch.from_numpy(rng.standard_normal(((2 * w - 1) ** 2, heads)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((2 * 4, w * w, h * hd)).astype(np.float32)).to(tdt)
+    outs, grads = [], []
+    for fn in (lambda x, t: wk.window_attention(x, t, w, mask),
+               lambda x, t: _former_window_chain(x, t, w, mask, tdt)):
+        x = qkv.to(tdt).requires_grad_(True)
+        t = table.clone().requires_grad_(True)
+        o = fn(x, t[:, cols])
+        outs.append(o)
+        grads.append(torch.autograd.grad(o, (x, t), cot))
+    assert outs[0].dtype == tdt and torch.equal(outs[0], outs[1])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_window_kernel_takes_every_swin_config_stage():
+    """K6's shape check accepts every stage of every SWIN_CONFIGS entry."""
+    from cosa_tpu_torch.kernels import window_attn as wk
+
+    for cfg in tswin.SWIN_CONFIGS.values():
+        for si, heads in enumerate(cfg.num_heads):
+            wk.check_dims(cfg.window, cfg.embed_dim * 2 ** si // heads)
+
+
+@pytest.mark.parametrize("window,head_dim", [(9, 32), (0, 32), (7, 12), (7, 72), (7, 40),
+                                             (7, 4)])
+def test_window_kernel_refuses_what_it_cannot_tile(window, head_dim):
+    """A window wider than 8 (more than one 64-row tile) or a head width
+    that is not a multiple of 8 in 8..32 (the widest head of SWIN_CONFIGS)
+    raises."""
+    from cosa_tpu_torch.kernels import window_attn as wk
+
+    with pytest.raises(ValueError):
+        wk.check_dims(window, head_dim)
+
+
 # test_zoo_oracle.py:189's sizes (window 4): shifted + padded, shifted,
 # unpadded, padded twice, unshifted + padded; and one padded single window
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
