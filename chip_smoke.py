@@ -105,13 +105,6 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      best-seg weights (its per-class table equal to finaleval's result on
      them, its exit code the one that table implies); exact launch counts
      for each;
- 16. the benchmark and profiling twins (cli/bench.py, bench_scales.py,
-     bench_loader.py, bench_e2e.py, profile_step.py) at short counts, each
-     through its main: every line parses with finite numbers, each bench
-     line's K1/K2/K3 launches per timed step are exact and its MFU lies in
-     (0, 1.05), the loader's thread and process pools run, the profile's
-     trace holds kernel events under every default span and its buckets
-     add up to the window; exact launch counts for each;
  17. the attention audit (cli/audit_attention.py) on phase 8's tree: the
      VOC default trained 300 steps from its seeded init (warmups cut), its
      state saved as the loop saves it, then K1/K2 against the plain and
@@ -137,6 +130,8 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager
+
+from cosa_tpu_torch import kernels
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -953,26 +948,9 @@ def _main_cfg(**kw):
     return preset_config("synthetic", **base)
 
 
-def _launch_dicts():
-    from cosa_tpu_torch.kernels import flash, flash_variants, rff, tta_fuse, window_attn
-
-    return (flash.LAUNCHES, rff.LAUNCHES, flash_variants.LAUNCHES, tta_fuse.LAUNCHES,
-            window_attn.LAUNCHES)
-
-
-def _counts():
-    return {k: v for d in _launch_dicts() for k, v in d.items()}
-
-
-def _reset_counts():
-    for d in _launch_dicts():
-        for k in d:
-            d[k] = 0
-
-
 def _want(**nonzero):
     """Every kernel's expected launch count: ``nonzero``, else 0."""
-    return {k: nonzero.get(k, 0) for k in _counts()}
+    return {k: nonzero.get(k, 0) for k in kernels.launches()}
 
 
 def phase_main_path(smi: str):
@@ -982,10 +960,10 @@ def phase_main_path(smi: str):
 
     cfg = _main_cfg(name="main")
     steps = cfg.max_iters
-    _reset_counts()
+    kernels.reset_launches()
     res = train(cfg, device="cuda")
     torch.cuda.synchronize()
-    counts = _counts()
+    counts = kernels.launches()
     recs = res["records"]
     log(f"phase 4 main path: {len(recs)} steps, launches {counts}")
     if len(recs) != steps:
@@ -1158,10 +1136,10 @@ def phase_scoring(smi: str):
     counts = {}
 
     def run(tag, fn, **want):
-        _reset_counts()
+        kernels.reset_launches()
         res = fn()
         torch.cuda.synchronize()
-        counts[tag] = _counts()
+        counts[tag] = kernels.launches()
         if counts[tag] != _want(**want):
             raise AssertionError(f"phase 6 {tag}: launch counts {counts[tag]} != {_want(**want)}")
         return res
@@ -1317,11 +1295,11 @@ def phase_optin(smi: str):
     counts = {}
 
     def run(tag, c, **want):
-        _reset_counts()
+        kernels.reset_launches()
         with _patched(loop_mod, "build_train_step", thresholds(thre[tag])):
             res = loop_mod.train(c, device="cuda")
         torch.cuda.synchronize()
-        counts[tag] = _counts()
+        counts[tag] = kernels.launches()
         if counts[tag] != _want(**want):
             raise AssertionError(f"phase 8 {tag}: launch counts {counts[tag]} != {_want(**want)}")
         return res
@@ -1422,11 +1400,11 @@ def phase_host_crf(smi: str, out: str, cfg, device_time):
     for backend in ("native", "jax"):
         c = cfg.replace(crf_backend=backend, crf_reduce=1)
         into = labels[backend] = []
-        _reset_counts()
+        kernels.reset_launches()
         with _patched(engine_mod, "crf_refine_host", lambda f: _recording(f, into)):
             res = evaluate(c, model, val_ds, getcrf=True, max_images=n_img, device="cuda")
         torch.cuda.synchronize()
-        counts[f"crf_{backend}"] = _counts()
+        counts[f"crf_{backend}"] = kernels.launches()
         want = _want(flash_fwd=n_img * 12 * len(c.eval_scales), tta_fuse=n_img)
         if counts[f"crf_{backend}"] != want:
             raise AssertionError(f"phase 9 {backend}: launch counts {counts[f'crf_{backend}']} "
@@ -1515,10 +1493,10 @@ def phase_pseudo_submission(smi: str, out: str, cfg):
     counts, timed = {}, {}
 
     def run(tag, fn, **want):
-        _reset_counts()
+        kernels.reset_launches()
         res = fn()
         torch.cuda.synchronize()
-        counts[tag] = _counts()
+        counts[tag] = kernels.launches()
         if counts[tag] != _want(**want):
             raise AssertionError(f"phase 10 {tag}: launch counts {counts[tag]} != {_want(**want)}")
         return res
@@ -1681,11 +1659,11 @@ def phase_variants(smi: str, root: str):
 
         val_batches = 2 * -(-OPTIN_VAL // cfg.eval_batch)  # student, teacher
         per_val = val_batches * 12 * len(cfg.eval_scales)
-        _reset_counts()
+        kernels.reset_launches()
         with _patched(loop_mod, "load_pretrained_into_state", checking):
             res = loop_mod.train(cfg, device="cuda")
         torch.cuda.synchronize()
-        counts[tag] = _counts()
+        counts[tag] = kernels.launches()
         want = _want(flash_fwd=48 * 4 + per_val, flash_bwd=12 * 4, rff_phi=4 + 2,
                      tta_fuse=4 + val_batches)
         if counts[tag] != want:
@@ -1836,11 +1814,11 @@ def phase_zoo(smi: str, root: str):
         return fn
 
     def run(tag, fn, **want):
-        _reset_counts()
+        kernels.reset_launches()
         calls = WINDOW_ATTN["calls"]
         res = fn()
         torch.cuda.synchronize()
-        counts[tag] = _counts()
+        counts[tag] = kernels.launches()
         # K6 runs every window attention: a forward launch a call
         want["window_attn_fwd"] = WINDOW_ATTN["calls"] - calls
         if counts[tag] != _want(**want) or not want["window_attn_fwd"]:
@@ -1899,7 +1877,7 @@ def phase_zoo(smi: str, root: str):
     log(f"phase 12 swin: resumed steps 3-4 within {gap:.3e} relative of the straight run's "
         f"losses (bound 5e-3)")
 
-    _reset_counts()
+    kernels.reset_launches()
     calls, cpu_calls = WINDOW_ATTN["calls"], 0
     x_tiny = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
     x_big = torch.from_numpy(
@@ -1945,7 +1923,7 @@ def phase_zoo(smi: str, root: str):
         del m, ys
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    counts["seg_only"] = _counts()
+    counts["seg_only"] = kernels.launches()
     # UPerSwin's window attentions on the card (tiny in f32, Swin-B in bf16)
     # through K6; the CPU's through the plain version
     if counts["seg_only"] != _want(window_attn_fwd=WINDOW_ATTN["calls"] - calls - cpu_calls):
@@ -1966,10 +1944,10 @@ def phase_microbench():
     from cosa_tpu_torch.cli import microbench_softmax as mb
     from cosa_tpu_torch.kernels import flash_variants
 
-    _reset_counts()
+    kernels.reset_launches()
     out = mb.run()
     torch.cuda.synchronize()
-    counts = _counts()
+    counts = kernels.launches()
     calls = len(mb.TOKENS) * (1 + mb.WARMUP + mb.REPS)  # cosine, warm-up, timed
     want = _want(flash_fwd=calls + len(mb.TOKENS),  # + K1's reference output
                  **{f"flash_fwd_{m}": calls for m in flash_variants.MODES})
@@ -2037,26 +2015,25 @@ def _int8_dense_vs_cpu():
 def _int8_runs(smi: str, sec_iter: float, counts: dict):
     """4 steps of the default configuration with the int8 teacher at
     min_size 512 (the 672 scale: 48 int8 products a step) and 0 (every
-    scale: 144); exact launch counts as phase 4's."""
+    scale: 144); exact launch counts as phase 4's, the int8 products among
+    them."""
     import torch
 
-    from cosa_tpu_torch.models import quant
     from cosa_tpu_torch.train.loop import LOSS_KEYS, train
 
     for min_size, per_step in ((512, 48), (0, 144)):
         tag = f"int8_min{min_size}"
         cfg = _main_cfg(name=tag, teacher_int8=True, teacher_int8_min_size=min_size,
                         max_iters=4)
-        _reset_counts()
-        quant.LAUNCHES["int8_mm"] = 0
+        kernels.reset_launches()
         res = train(cfg, device="cuda")
         torch.cuda.synchronize()
-        counts[tag] = _counts()
-        mm = quant.LAUNCHES["int8_mm"]
-        want = _want(flash_fwd=48 * 4, flash_bwd=12 * 4, rff_phi=4 + 2, tta_fuse=4)
-        if counts[tag] != want or mm != per_step * 4:
-            raise AssertionError(f"phase 13 {tag}: launches {counts[tag]}, int8 products "
-                                 f"{mm}; want {want}, {per_step * 4}")
+        counts[tag] = kernels.launches()
+        mm = counts[tag]["int8_mm"]
+        want = _want(flash_fwd=48 * 4, flash_bwd=12 * 4, rff_phi=4 + 2, tta_fuse=4,
+                     int8_mm=per_step * 4)
+        if counts[tag] != want:
+            raise AssertionError(f"phase 13 {tag}: launches {counts[tag]}; want {want}")
         recs = res["records"]
         if len(recs) != 4 or not all(math.isfinite(r[k]) for r in recs for k in LOSS_KEYS):
             raise AssertionError(f"phase 13 {tag}: losses {recs}")
@@ -2124,10 +2101,10 @@ def _optimizer_runs(smi: str, counts: dict):
     for kind in ("cos_adamw", "poly_sgd", "poly_cls_sgd"):
         cfg = _main_cfg(name=f"opt_{kind}", optimizer=kind, max_iters=3,
                         freeze_norm=kind == "poly_cls_sgd")
-        _reset_counts()
+        kernels.reset_launches()
         res = train(cfg, device="cuda")
         torch.cuda.synchronize()
-        counts[kind] = _counts()
+        counts[kind] = kernels.launches()
         want = _want(flash_fwd=48 * 3, flash_bwd=12 * 3, rff_phi=3 + 2, tta_fuse=3)
         if counts[kind] != want:
             raise AssertionError(f"phase 13 {kind}: launches {counts[kind]} != {want}")
@@ -2185,10 +2162,10 @@ def _legacy_on_the_card(counts: dict):
         crop[i, 8 * i:h - 4 * i, 16 * i:h - 8 * i] = 1.0
     args = (imgs, logits, torch.from_numpy(label), torch.from_numpy(crop))
     ref = [float(v) for v in rrm.compute_joint_loss(*args)]
-    _reset_counts()
+    kernels.reset_launches()
     got = [float(v) for v in rrm.compute_joint_loss(*(t.cuda() for t in args))]
     torch.cuda.synchronize()
-    counts["joint_loss"] = _counts()
+    counts["joint_loss"] = kernels.launches()
     rel = [abs(a - r) / abs(r) for a, r in zip(got, ref)]
     log(f"phase 13 rrm.compute_joint_loss (4, 448, 448): card (ce, dloss) {got}, CPU {ref}, "
         f"relative gaps {[f'{x:.2e}' for x in rel]}, launches {counts['joint_loss']}")
@@ -2206,10 +2183,10 @@ def _legacy_on_the_card(counts: dict):
                 ("v2", lambda: multi_scale_camseg_v2(teacher, wimg, cfg.pseudo_scales,
                                                      cam_fuse=("max", "sum"),
                                                      seg_fuse=("sum", "sum")))):
-            _reset_counts()
+            kernels.reset_launches()
             fuse[tag] = fn()
             torch.cuda.synchronize()
-            counts[f"tta_{tag}"] = _counts()
+            counts[f"tta_{tag}"] = kernels.launches()
 
     def gaps(tag):  # cam, cam_aux: max abs on [0, 1]; seg: of its range
         g = [float((a.float() - r.float()).abs().max()) for a, r in zip(fuse["v2"], fuse[tag])]
@@ -2632,12 +2609,12 @@ def phase_runs(smi: str, out8: str, cfg8):
     counts = {}
 
     def run(tag, fn, **want):
-        _reset_counts()
+        kernels.reset_launches()
         t0 = time.time()
         with contextlib.redirect_stdout(io.StringIO()) as text:
             res = fn()
         torch.cuda.synchronize()
-        counts[tag] = _counts()
+        counts[tag] = kernels.launches()
         if counts[tag] != _want(**want):
             raise AssertionError(f"phase 15 {tag}: launch counts {counts[tag]} != {_want(**want)}")
         return res, text.getvalue(), time.time() - t0
@@ -2757,168 +2734,6 @@ def phase_runs(smi: str, out8: str, cfg8):
     return counts
 
 
-# phase 16: the benchmark twins at short counts
-P16_ITERS, P16_SCALE_ITERS = 5, 3  # timed steps: bench's lines; each scale variant
-P16_E2E_IMGS, P16_E2E_ITERS = 32, 10
-P16_LOADER = ("4", "-4")
-P16_LOADER_BATCHES = 10
-P16_PROFILE_STEPS = 3  # profiled steps; the pieces run P16_SCALE_ITERS calls each
-P16_MFU = (0.0, 1.05)
-K1_PER_STEP = {3: 48, 2: 36, 1: 24}  # K1 per step by teacher scales (12 blocks each + student)
-
-
-def _finite(x, where: str) -> None:
-    """Every number inside ``x`` is finite."""
-    if isinstance(x, dict):
-        for k, v in x.items():
-            _finite(v, f"{where}.{k}")
-    elif isinstance(x, (list, tuple)):
-        for i, v in enumerate(x):
-            _finite(v, f"{where}[{i}]")
-    elif isinstance(x, float) and not math.isfinite(x):
-        raise AssertionError(f"phase 16: {where} = {x}")
-
-
-def _json_lines(text: str, what: str):
-    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
-    if not lines:
-        raise AssertionError(f"phase 16 {what}: no JSON line in {text[-2000:]!r}")
-    for i, line in enumerate(lines):
-        _finite(line, f"{what}[{i}]")
-    return lines
-
-
-def _check_step_line(line: dict, kind: str, k1: int, k3: int) -> None:
-    want = {"flash_fwd": k1, "flash_bwd": 12, "rff_phi": k3}
-    if line.get("skipped") or line["launches_per_step"] != want:
-        raise AssertionError(f"phase 16 {line['metric']}: launches per step "
-                             f"{line.get('launches_per_step')} != {want} ({line})")
-    if not P16_MFU[0] < line.get("mfu", -1.0) < P16_MFU[1] or line["device"] != kind:
-        raise AssertionError(f"phase 16 {line['metric']}: mfu {line.get('mfu')} outside "
-                             f"{P16_MFU} or device {line['device']} != {kind}")
-
-
-def phase_benchmarks(smi: str, kind: str):
-    """Phase 16: the benchmark and profiling twins (cosa_tpu_torch/cli/
-    bench*.py, profile_step.py) at short counts, each through its main.
-    Every line parses with finite numbers; each bench line's K1/K2/K3
-    launches per timed step are exact (48/12/1 for the VOC default, 0 K3
-    on the lattice line, 36 and 24 K1 at 2 and 1 teacher scales) and its
-    MFU lies in (0, 1.05); the profile's trace holds kernel events, each
-    default span has device time and the buckets add up to the window;
-    exact launch counts for each twin's run. bench_loader runs in a
-    process of its own: its process pool forks, and this process holds a
-    CUDA context and threads. Returns each run's counts."""
-    import contextlib
-    import io
-
-    import torch
-
-    from cosa_tpu_torch.cli import bench, bench_e2e, bench_scales, profile_step
-    from cosa_tpu_torch.config import voc_config
-
-    root = os.path.join(ROOT, "build", "chip_smoke")
-    counts = {}
-
-    def run(tag, fn, **want):
-        _reset_counts()
-        t0 = time.time()
-        with contextlib.redirect_stdout(io.StringIO()) as text:
-            fn()
-        torch.cuda.synchronize()
-        counts[tag] = _counts()
-        if counts[tag] != _want(**want):
-            raise AssertionError(f"phase 16 {tag}: launch counts {counts[tag]} != {_want(**want)}")
-        return _json_lines(text.getvalue(), tag), time.time() - t0
-
-    # each line: its warm-up and timed steps (the counted step runs the plain
-    # versions of K1-K3; its TTA fuse launches K5)
-    steps = bench.WARMUP + P16_ITERS
-    lines, secs = run("bench", lambda: bench.main(["--iters", str(P16_ITERS)]),
-                      flash_fwd=48 * 3 * steps, flash_bwd=12 * 3 * steps, rff_phi=2 * steps,
-                      tta_fuse=3 * (steps + 1))
-    by = {ln["metric"]: ln for ln in lines}
-    if len(lines) != 4 or {lines[0]["metric"], lines[-1]["metric"]} != {"voc_train_imgs_per_sec"}:
-        raise AssertionError(f"phase 16 bench: lines {[ln['metric'] for ln in lines]}")
-    for metric, k3 in (("voc_train_imgs_per_sec", 1), ("voc_lattice_train_imgs_per_sec", 0),
-                       ("coco_train_imgs_per_sec", 1)):
-        _check_step_line(by[metric], kind, 48, k3)
-    log(f"phase 16 bench: {secs:.1f} s; " + "; ".join(
-        f"{ln['metric']} {ln['sec_per_iter']:.4f} s/iter, {ln['tflops_per_step']:.3f} TFLOP/step, "
-        f"mfu {ln['mfu']:.4f}" for ln in lines[1:]) + f"; on {smi}")
-
-    steps = bench.WARMUP + P16_SCALE_ITERS
-    lines, secs = run("bench_scales", lambda: bench_scales.main(
-        ["--iters", str(P16_SCALE_ITERS)]),
-        flash_fwd=(48 + 36 + 24) * steps, flash_bwd=12 * 3 * steps, rff_phi=3 * steps,
-        tta_fuse=3 * (steps + 1))
-    for ln in lines:
-        _check_step_line(ln, kind, K1_PER_STEP[len(ln["pseudo_scales"])], 1)
-    log(f"phase 16 bench_scales: {secs:.1f} s; " + "; ".join(
-        f"{ln['metric']} {ln['sec_per_iter']:.4f} s/iter, mfu {ln['mfu']:.4f}" for ln in lines))
-
-    tree = os.path.join(root, "p16_tree")
-    bench_e2e.build_tree(tree, "voc", P16_E2E_IMGS)
-    t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, "-m", "cosa_tpu_torch.cli.bench_loader", "--data_root", tree,
-         "--workers", *P16_LOADER, "--n_batches", str(P16_LOADER_BATCHES)],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    if proc.returncode:
-        raise AssertionError(f"phase 16 bench_loader: rc {proc.returncode}: {proc.stderr[-2000:]}")
-    lines = _json_lines(proc.stdout, "bench_loader")
-    if [str(ln["workers"]) for ln in lines] != list(P16_LOADER) or \
-            not all(ln["imgs_per_sec"] > 0 for ln in lines):
-        raise AssertionError(f"phase 16 bench_loader: {lines}")
-    log(f"phase 16 bench_loader: {time.time() - t0:.1f} s; " + "; ".join(
-        f"{ln['workers']} {ln['pool']} workers {ln['imgs_per_sec']:.1f} img/s "
-        f"({1e3 * ln['sec_per_batch']:.1f} ms/batch)" for ln in lines)
-        + f" on {lines[0]['host_cores']} host cores")
-
-    steps = bench_e2e.WARMUP + 2 * P16_E2E_ITERS  # end to end, then compute-only
-    (line,), secs = run("bench_e2e", lambda: bench_e2e.main(
-        [str(P16_E2E_ITERS), "--n_imgs", str(P16_E2E_IMGS)]),
-        flash_fwd=48 * steps, flash_bwd=12 * steps, rff_phi=steps, tta_fuse=steps)
-    if line["device"] != kind or not line["sec_per_iter"] > 0 < line["compute_sec_per_iter"]:
-        raise AssertionError(f"phase 16 bench_e2e: {line}")
-    log(f"phase 16 bench_e2e: {secs:.1f} s; e2e {line['sec_per_iter']:.4f} s/iter against "
-        f"compute-only {line['compute_sec_per_iter']:.4f} ({line['e2e_over_compute']:.3f}x)")
-
-    trace = os.path.join(root, "p16_trace.json.gz")
-    # the pieces: full (+1 counted plain), teacher_tta, student_grad, update;
-    # one TTA for the pseudo targets; then the profiled steps (+ wait, warm-up).
-    # K5 runs in the counted full step and the counted teacher_tta too
-    calls = bench.WARMUP + P16_SCALE_ITERS
-    full = calls + 2 + P16_PROFILE_STEPS
-    lines, secs = run("profile_step", lambda: profile_step.main(
-        ["--iters", str(P16_SCALE_ITERS), "--steps", str(P16_PROFILE_STEPS), "--out", trace]),
-        flash_fwd=48 * full + 36 * (1 + calls) + 12 * calls,
-        flash_bwd=12 * (full + calls), rff_phi=full + calls, tta_fuse=full + 1 + calls + 2)
-    pieces, prof = lines[:-1], lines[-1]
-    if [ln["piece"] for ln in pieces] != ["full", "teacher_tta", "student_grad", "update"] or \
-            not P16_MFU[0] < pieces[0]["mfu"] < P16_MFU[1]:
-        raise AssertionError(f"phase 16 profile_step pieces: {pieces}")
-    total = sum(prof["device_ms"].values()) + prof["unattributed_ms"] + prof["idle_ms"]
-    silent = [s for s in profile_step.default_spans(voc_config())
-              if not prof["device_ms"][s] > 0]
-    if not prof["n_kernel_events"] or silent or \
-            abs(total - prof["window_ms"]) > profile_step.SUM_TOL * prof["window_ms"]:
-        raise AssertionError(f"phase 16 profile_step: kernel events {prof['n_kernel_events']}, "
-                             f"spans without device time {silent}, buckets {total} ms against "
-                             f"the window {prof['window_ms']} ms")
-    log(f"phase 16 profile_step: {secs:.1f} s; pieces " + ", ".join(
-        f"{ln['piece']} {ln['ms']:.2f} ms" for ln in pieces)
-        + f"; per step: window {prof['window_ms']:.2f} ms, busy {prof['busy_ms']:.2f}, idle "
-        f"share {prof['idle_share']:.4f}, device ms by span "
-        + json.dumps({k: round(v, 3) for k, v in prof["device_ms"].items()})
-        + f", unattributed {prof['unattributed_ms']:.3f}; kernel shares "
-        + json.dumps(prof["kernel_share"]))
-    log("phase 16 ok: the bench lines parse with exact launches per step and MFU in "
-        f"{P16_MFU}; the loader, end-to-end and profile twins run; the trace's buckets add up "
-        "to its window")
-    return counts
-
-
 # phase 17: the attention audit at a state past init
 P17_STEPS, P17_LR_WARMUP, P17_GATE, P17_REPEAT = 300, 50, 150, 200
 
@@ -2961,11 +2776,11 @@ def phase_audit(smi: str, root: str):
     shutil.rmtree(out, ignore_errors=True)
     counts = {}
     t0 = time.time()
-    _reset_counts()
+    kernels.reset_launches()
     with contextlib.redirect_stdout(io.StringIO()):
         res = train(cfg, device="cuda")
     torch.cuda.synchronize()
-    counts["train"] = _counts()
+    counts["train"] = kernels.launches()
     want = _want(flash_fwd=48 * P17_STEPS, flash_bwd=12 * P17_STEPS, rff_phi=P17_STEPS + 2,
                  tta_fuse=P17_STEPS)
     if counts["train"] != want:
@@ -2979,10 +2794,10 @@ def phase_audit(smi: str, root: str):
     path = ckpt.save_state(os.path.join(out, "ckpt"), res["state"], P17_STEPS)
     del res
     t0 = time.time()
-    _reset_counts()
+    kernels.reset_launches()
     report = audit_attention.audit(cfg, path, "cuda", P17_REPEAT)
     torch.cuda.synchronize()
-    counts["audit"] = _counts()
+    counts["audit"] = kernels.launches()
     # the teacher's TTA with the kernels (36), the captured step (48 + 12,
     # K3 once), each site again (48 + 12), each repeat (the student's
     # forward and backward, the teacher at its 3 token counts); K3 twice
@@ -3034,7 +2849,6 @@ def main() -> int:
     int8, legacy = phase_int8_optim_legacy(smi, sec_iter, convention)
     parallel = phase_parallel(smi, sec_iter, convention)
     presets = phase_runs(smi, out, cfg)
-    benches = phase_benchmarks(smi, kind)
     audit = phase_audit(smi, cfg.data_root)
     for r in rows:
         # launches on the kernel's own path: training for K1-K3 and K5, the
@@ -3043,7 +2857,7 @@ def main() -> int:
         for key, runs in (("scoring", scoring), ("optin", optin), ("pseudo", pseudo),
                           ("variant", variants), ("zoo", zoo), ("int8", int8),
                           ("legacy", legacy), ("parallel", parallel), ("runs", presets),
-                          ("bench", benches), ("audit", audit)):
+                          ("audit", audit)):
             r[f"{key}_launches"] = {tag: c[r["name"]] for tag, c in runs.items()}
         r["ok"] = True
     log(json.dumps({"kernels": rows}))

@@ -20,12 +20,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from cosa_tpu_torch.kernels import counter
+
 HEAD_DIM = 64  # the only head width the kernels take
 # K1 runs 128-query blocks above this many tokens, 64-query blocks up to it
 BLOCK_128_ABOVE = 1024
 
 # launches of each kernel's wrapper on the card (K1, K2); plain integers
-LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
+LAUNCHES = counter("flash_fwd", "flash_bwd")
 
 _VP = ctypes.c_void_p
 _TYPED = []  # libraries whose C signatures are set

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from cosa_tpu_torch.kernels import counter
 from cosa_tpu_torch.kernels.flash import HEAD_DIM, _check, _dims, block_rows
 
 MODES = ("bf16exp", "nomax")
@@ -30,7 +31,7 @@ LOG2E = 1.4426950408889634
 NOMAX_SHIFT = 30.0  # microbench_softmax.py:56
 
 # launches of the kernel's wrapper on the card, by mode; plain integers
-LAUNCHES = {f"flash_fwd_{m}": 0 for m in MODES}
+LAUNCHES = counter(*(f"flash_fwd_{m}" for m in MODES))
 
 _VP = ctypes.c_void_p
 _TYPED = []  # libraries whose C signature is set

@@ -21,7 +21,9 @@ import math
 import numpy as np
 import torch
 
-LAUNCHES = {"rff_phi": 0}
+from cosa_tpu_torch.kernels import counter
+
+LAUNCHES = counter("rff_phi")
 
 _VP = ctypes.c_void_p
 _TYPED = []

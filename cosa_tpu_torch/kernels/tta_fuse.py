@@ -23,9 +23,10 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from cosa_tpu_torch.kernels import counter
 from cosa_tpu_torch.ops.resize import resize_bilinear
 
-LAUNCHES = {"tta_fuse": 0}
+LAUNCHES = counter("tta_fuse")
 
 MAX_SCALES = 8  # the kernel's per-scale arguments are fixed arrays of this size
 CAM_DTYPES = (torch.bfloat16, torch.float32)

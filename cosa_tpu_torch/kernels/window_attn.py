@@ -28,12 +28,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from cosa_tpu_torch.kernels import counter
+
 MAX_WINDOW = 8  # a window of at most 64 tokens: one tile of the kernels
 MAX_HEAD_DIM = 32  # the widest head of SWIN_CONFIGS; the kernels build 16 and 32
 DTYPES = (torch.bfloat16, torch.float32)
 
 # launches of each kernel's wrapper on the card; plain integers
-LAUNCHES = {"window_attn_fwd": 0, "window_attn_bwd": 0}
+LAUNCHES = counter("window_attn_fwd", "window_attn_bwd")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int

@@ -24,10 +24,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from cosa_tpu_torch.kernels import counter
 from cosa_tpu_torch.parallel.tensor import all_reduce_max
 
 # torch._int_mm calls made for a CUDA tensor, counted where they are made
-LAUNCHES = {"int8_mm": 0}
+LAUNCHES = counter("int8_mm")
 _INV127 = float(np.float32(1.0) / np.float32(127.0))
 
 

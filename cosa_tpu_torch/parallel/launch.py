@@ -29,6 +29,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from cosa_tpu_torch.kernels import launches
+
 TIMEOUT_S = 900  # a whole spawn; a collective waits as long
 
 
@@ -112,13 +114,6 @@ def allreduce_worker(rank: int, numel: int, device, reps: int = 5) -> Dict[str, 
                 backend=dist.get_backend())
 
 
-def _launches() -> Dict[str, int]:
-    from cosa_tpu_torch.kernels import flash, flash_variants, rff, tta_fuse, window_attn
-
-    return {**flash.LAUNCHES, **rff.LAUNCHES, **flash_variants.LAUNCHES, **tta_fuse.LAUNCHES,
-            **window_attn.LAUNCHES}
-
-
 def train_worker(rank: int, cfgs: Sequence, device=None) -> List[Dict]:
     """``train.loop.train`` of each config in turn (a run, then its resumed
     continuation, say) on this rank. Per run: the logged records, the last
@@ -127,11 +122,11 @@ def train_worker(rank: int, cfgs: Sequence, device=None) -> List[Dict]:
 
     out = []
     for cfg in cfgs:
-        before = _launches()
+        before = launches()
         res = train(cfg, device=device)
         out.append(dict(records=res["records"], results=res["results"],
                         best_seg=res["best_seg"], best_cam=res["best_cam"],
-                        launches={k: v - before[k] for k, v in _launches().items()}))
+                        launches={k: v - before[k] for k, v in launches().items()}))
     return out
 
 
@@ -164,14 +159,14 @@ def steps_worker(rank: int, cfg, device, init: Dict,
     step = build_train_step(cfg, mesh)
     rows = mesh.rows(cfg.batch_size)
     metrics = []
-    before = _launches()
+    before = launches()
     for batch in batches:
         m = step(state, {k: torch.from_numpy(v[rows]).to(dev) for k, v in batch.items()})
         metrics.append({k: float(all_mean(v, mesh.dp_group)) for k, v in m.items()
                         if torch.is_tensor(v) and v.ndim == 0} | {"lr": m["lr"]})
     cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
     return dict(metrics=metrics, step=state.step,
-                launches={k: v - before[k] for k, v in _launches().items()},
+                launches={k: v - before[k] for k, v in launches().items()},
                 student=cpu(gather_state_dict(state.student, mesh)),
                 teacher=cpu(gather_state_dict(state.teacher, mesh)),
                 exp_avg={k: v["exp_avg"].cpu()

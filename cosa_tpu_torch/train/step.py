@@ -18,7 +18,7 @@ which ``torch.profiler`` reads and which costs next to nothing without one.
 Loss weighting (main.py:240-243): the cls losses are always on; seg/cam/reg
 are scaled by ``warmup_gate_floor`` while step <= warmup_iters. The step
 carries its parts as ``.pieces`` (:class:`StepPieces`), which
-cli/profile_step.py times one by one.
+cli/audit_attention.py runs one by one.
 """
 
 from __future__ import annotations
@@ -304,6 +304,6 @@ def build_train_step(cfg, mesh: Optional[Mesh] = None
             thre_high=thre[1],
         )
 
-    # the pieces, for cli/profile_step.py to time on their own
+    # the pieces, for cli/audit_attention.py to run on their own
     train_step.pieces = StepPieces(teacher_tta, pseudo_targets, student_loss, backward, update)
     return train_step

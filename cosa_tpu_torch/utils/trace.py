@@ -16,9 +16,9 @@ of the card by the innermost span open at its middle: the traced run's
 
   train/step.py (one each a step; ``gmm`` with GMM on)
     teacher_tta       the teacher's TTA: ``teacher_tta_device_ms.train``
-                      (its device ms), ``cli/profile_step.py``
+                      (its device ms), the ``breakdown``
     gmm, pseudo_labels, student_forward, losses, energy, backward,
-    optimizer, ema    ``cli/profile_step.py``, the ``breakdown``
+    optimizer, ema    the ``breakdown``
   objectives/pseudo.py::multi_scale_camseg (the train step's TTA and
   validation's)
     tta_forward       each scale's forward: ``tta_forward_idle_ms.train``,
@@ -50,8 +50,7 @@ of the card by the innermost span open at its middle: the traced run's
     to_device         the batch's copy to the card
 
 Outside the benchmark every span is read in the trace that the loop writes
-with ``profile_dir`` (its validations included), and the step's and the
-TTA's also in ``cli/profile_step.py``'s.
+with ``profile_dir`` (its validations included).
 """
 
 from __future__ import annotations

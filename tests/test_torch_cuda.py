@@ -543,7 +543,7 @@ def test_gloo_dp2_on_one_card_matches_one_process(gpu):
                   "cuda:0", init, batches)
     assert one["launches"] == {"flash_fwd": 2 * 48, "flash_bwd": 2 * 12, "rff_phi": 2,
                                "flash_fwd_bf16exp": 0, "flash_fwd_nomax": 0, "tta_fuse": 2,
-                               "window_attn_fwd": 0, "window_attn_bwd": 0}
+                               "window_attn_fwd": 0, "window_attn_bwd": 0, "int8_mm": 0}
     for out in ranks:
         assert out["launches"] == one["launches"]
         for got, want in zip(out["metrics"], one["metrics"]):
