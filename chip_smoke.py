@@ -23,7 +23,9 @@ Phases, in order; any failure exits nonzero and no phase catches and goes on:
      launch per multi_scale_camseg call; K6, Swin's window attention, at
      every stage of the Swin-B cell's forwards against float64, forward
      and backward, beside scaled_dot_product_attention with the bias and
-     mask as its attn_mask, summed per training step);
+     mask as its attn_mask, summed per training step; K8, the pseudo
+     mask, at the training cells' and validation's shapes, one launch a
+     call);
   4. train 6 steps of the default VOC configuration (ViT-B/16, crop 448,
      batch 4, bf16, RFF energy) on synthetic data through
      cosa_tpu_torch.train.loop.train, from a seeded random init (no weights
@@ -612,6 +614,9 @@ def phase_kernels():
     # ---- K6, Swin's window attention, at the Swin-B cell's shapes
     _k6_window_attn(rows, failures)
 
+    # ---- K8, the pseudo mask, at the train cells' and validation's shapes
+    _k8_cam2mask(rows, failures)
+
     # ---- K4, the two softmax variants, at the microbenchmark's B*H = 96,
     # each beside K1 at the same shape and block size
     bv = 8
@@ -668,8 +673,70 @@ def phase_kernels():
         "err < 1e-2 (N 785, 197, 786); K3 max err vs f64 < 3e-4 "
         "(bf16), < 1e-5 (f32); K4 max err <= 1e-2 and cos vs K1 >= 0.9999 "
         f"({json.dumps(k4)}); K5 at its shapes; K6 within 1.1x the plain bf16 error "
-        "against f64 + 1e-4 at every Swin-B stage")
+        "against f64 + 1e-4 at every Swin-B stage; K8's labels the plain chain's")
     return rows
+
+
+# K8's shapes, one call a head (two a training step): (what, B, crop,
+# classes, mean classes an image, thresholds high and low, the box's far
+# ends). The training CAMs are K5's f32 output; validation's threshold
+# filters run on the 500 canvas with each image's box [0, h - 1, 0, w - 1]
+K8_SHAPES = (
+    ("voc train", 4, 448, 20, 1.4, (0.7, 0.25), 0),
+    ("coco train", 8, 448, 80, 3.5, (0.65, 0.25), 0),
+    ("val thresholds", 8, 500, 20, 1.4, (0.7, 0.3), -1),
+)
+
+
+def _k8_cam2mask(rows: list, failures: list) -> None:
+    """K8 against ``plain_cam2mask`` at the cells' shapes (no label may
+    differ: tests/test_torch_cuda.py gives the reason), one launch a call,
+    and kernel, plain and bound times. The bound counts the CAMs read once
+    and the labels written once; the kernel reads the present classes'
+    CAMs alone, so a call can beat it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from cosa_tpu_torch.kernels import cam2mask as K
+
+    for what, b, crop, k, mean, (th, tl), end in K8_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(b * k)
+        rng = np.random.default_rng(b * k)
+        lab = torch.from_numpy((rng.random((b, k)) < mean / k).astype(np.float32)).cuda()
+        low = torch.rand((b, k, 14, 14), generator=g, device="cuda")
+        cams = F.interpolate(low, (crop, crop), mode="bicubic", align_corners=False)
+        cams = (cams.clamp(0, 1).permute(0, 2, 3, 1) * lab[:, None, None, :]).contiguous()
+        box = torch.tensor([[0, crop + end, 0, crop + end]] * b, dtype=torch.int32,
+                           device="cuda")
+        hi, lo = torch.tensor(th, device="cuda"), torch.tensor(tl, device="cuda")
+        before = K.LAUNCHES["cam2mask"]
+        got = K.cam2mask(box, cams, lab, hi, lo)
+        launches = K.LAUNCHES["cam2mask"] - before
+        want = K.plain_cam2mask(box, cams, lab, hi, lo)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        log(f"  K8 {what} B={b} {crop}^2 C={k + 1} f32: labels that differ from the plain "
+            f"chain's {differ} of {got.numel()}; launches {launches}; present classes "
+            f"{float(lab.sum()) / b:.2f} an image")
+        if differ or launches != 1:
+            failures.append(f"K8 {what}: {differ} labels differ, launches {launches}")
+        nbytes = cams.numel() * 4 + got.numel() * 4
+        bms, by = bound_ms(nbytes, 0.0, PEAK_F32)
+        ms = time_ms(lambda: K.cam2mask(box, cams, lab, hi, lo))
+        plain = time_ms(lambda: K.plain_cam2mask(box, cams, lab, hi, lo), reps=3, warmup=1)
+        log(f"  K8 {what}: kernel {ms:.4f} ms a call ({2 * ms:.4f} ms a step's two heads), "
+            f"bound {bms:.4f} ms ({by}, {nbytes / 1e9:.3f} GB), {bms / ms:.3f} of the bound; "
+            f"plain {plain:.4f} ms")
+        rows.append(dict(
+            name="cam2mask", route="cuda", source="cosa_tpu_torch/csrc/cam2mask.cu",
+            replaces="none (XLA fused this chain)",
+            shape=f"{what}: B={b} {crop}^2 C={k + 1} f32, downscale 2",
+            max_abs_err=float(differ), ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+            library_ms=None,
+        ))
+        del got, want, cams
+        torch.cuda.empty_cache()
 
 
 # K5's shapes at crop 448, one fuse a call: (what, B, CAM channels, CAM
@@ -976,10 +1043,11 @@ def phase_main_path(smi: str):
                 r[k] != 0.0 for k in ("seg_loss", "cam_loss", "reg_loss")):
             raise AssertionError(f"zero gated loss after warmup: {r}")
     # per step: 12 blocks x (3 teacher scales + 1 student) forwards, 12
-    # student backwards, one RFF embedding, one TTA fuse; plus the 2 RFF
-    # probes of the energy-convention calibration before the first step
+    # student backwards, one RFF embedding, one TTA fuse, one pseudo mask a
+    # head; plus the 2 RFF probes of the energy-convention calibration
+    # before the first step
     want = _want(flash_fwd=48 * steps, flash_bwd=12 * steps, rff_phi=steps + 2,
-                 tta_fuse=steps)
+                 tta_fuse=steps, cam2mask=2 * steps)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     times = [r["itertime"] for r in recs[1:]]
@@ -1122,7 +1190,7 @@ def phase_scoring(smi: str):
     from cosa_tpu_torch.train.loop import LOSS_KEYS, finaleval, output_dir, train
 
     cfg = _main_cfg(name="score", max_iters=4, eval_iters=2, fasteval=True,
-                    fasteval_n=16, finalval=True)
+                    fasteval_n=16, finalval=True, eval_threshold_filters=(0.3, 0.4))
     out = output_dir(cfg)
     cfg_r = cfg.replace(name="score_resume", finalval=False,
                         resume=os.path.join(out, "ckpt", "step_00000002.pt"))
@@ -1133,6 +1201,8 @@ def phase_scoring(smi: str):
     per_batch = 12 * len(cfg.eval_scales)
     val_batches = 2 * -(-cfg.fasteval_n // cfg.eval_batch)  # student, teacher
     per_val = val_batches * per_batch
+    # K8 in a validation: one pseudo mask a head and threshold an eval batch
+    val_masks = val_batches * 2 * len(cfg.eval_threshold_filters)
     counts = {}
 
     def run(tag, fn, **want):
@@ -1146,7 +1216,7 @@ def phase_scoring(smi: str):
 
     res = run("train_and_validation", lambda: train(cfg, device="cuda"),
               flash_fwd=48 * 4 + 2 * per_val, flash_bwd=12 * 4, rff_phi=4 + 2,
-              tta_fuse=4 + 2 * val_batches)
+              tta_fuse=4 + 2 * val_batches, cam2mask=2 * 4 + 2 * val_masks)
     with open(os.path.join(out, "metrics.jsonl")) as f:
         vals = [r for r in map(json.loads, f) if r["kind"] == "val"]
     if [(r["iter"], r["model"]) for r in vals] != [(2, "ON"), (2, "AN"), (4, "ON"), (4, "AN")]:
@@ -1178,7 +1248,7 @@ def phase_scoring(smi: str):
 
     resumed = run("resumed", lambda: train(cfg_r, device="cuda"),
                   flash_fwd=48 * 2 + per_val, flash_bwd=12 * 2, rff_phi=2 + 2,
-                  tta_fuse=2 + val_batches)
+                  tta_fuse=2 + val_batches, cam2mask=2 * 2 + val_masks)
     straight = {r["iter"]: r for r in res["records"]}
     if [r["iter"] for r in resumed["records"]] != [3, 4]:
         raise AssertionError(f"phase 6 resume: steps {[r['iter'] for r in resumed['records']]}")
@@ -1308,7 +1378,7 @@ def phase_optin(smi: str):
             _patched(energy_mod, "build_lattice", first_feats), \
             _patched(energy_mod, "apply_lattice", first_values):
         res = run("optin", cfg, flash_fwd=48 * 4 + 2 * per_val, flash_bwd=12 * 4,
-                  tta_fuse=4 + 2 * val_batches)
+                  tta_fuse=4 + 2 * val_batches, cam2mask=2 * 4, cam2mask_probs=2 * 4)
     if loaded != [True, True]:
         raise AssertionError(f"phase 8: pretrained encoder weights in student, teacher: {loaded}")
     recs = res["records"]
@@ -1325,7 +1395,7 @@ def phase_optin(smi: str):
         f"{cfg.high_thre}); launches {counts['optin']}")
 
     resumed = run("optin_resume", cfg_r, flash_fwd=48 * 2 + per_val, flash_bwd=12 * 2,
-                  tta_fuse=2 + val_batches)
+                  tta_fuse=2 + val_batches, cam2mask=2 * 2, cam2mask_probs=2 * 2)
     if [r["iter"] for r in resumed["records"]] != [3, 4]:
         raise AssertionError(f"phase 8 resume: steps {[r['iter'] for r in resumed['records']]}")
     straight = {r["iter"]: r for r in recs}
@@ -1519,7 +1589,8 @@ def phase_pseudo_submission(smi: str, out: str, cfg):
         shutil.rmtree(os.path.join(cfg.work_dir, tag), ignore_errors=True)
         with _patched(pp, "generate_pseudo_labels", _timed(timed, tag)):
             run(tag, lambda: make_pseudo.main([tag, *flags, "--usepar", par]),
-                flash_fwd=len(names) * per_image, tta_fuse=len(names))
+                flash_fwd=len(names) * per_image, tta_fuse=len(names), cam2mask=len(names),
+                cam2mask_probs=len(names) if par == "true" else 0)
         check_pseudo(tag, os.path.join(cfg.work_dir, tag, "pseudo"), sizes)
 
     model = ckpt.load_best(out, "seg", build_model(cfg, "cuda"))
@@ -1529,7 +1600,7 @@ def phase_pseudo_submission(smi: str, out: str, cfg):
     crf = _timed(timed, "pseudo_crf")(pp.generate_pseudo_labels)
     run("pseudo_crf", lambda: crf(cfg.replace(usepar=False), model, val_ds, crf_dir,
                                   max_images=n_crf, use_crf=True, device="cuda"),
-        flash_fwd=n_crf * per_image, tta_fuse=n_crf)
+        flash_fwd=n_crf * per_image, tta_fuse=n_crf, cam2mask=n_crf)
     check_pseudo("pseudo_crf", crf_dir, {n: sizes[n] for n in names[:n_crf]},
                  " (the native C++ CRF on the host)")
 
@@ -1665,7 +1736,7 @@ def phase_variants(smi: str, root: str):
         torch.cuda.synchronize()
         counts[tag] = kernels.launches()
         want = _want(flash_fwd=48 * 4 + per_val, flash_bwd=12 * 4, rff_phi=4 + 2,
-                     tta_fuse=4 + val_batches)
+                     tta_fuse=4 + val_batches, cam2mask=2 * 4)
         if counts[tag] != want:
             raise AssertionError(f"phase 11 {tag}: launch counts {counts[tag]} != {want}")
         if loaded != [True, True] or (ext == "pth") != ("encoder.dist_token" in src):
@@ -1828,7 +1899,7 @@ def phase_zoo(smi: str, root: str):
     torch.cuda.reset_peak_memory_stats()
     with _patched(loop_mod, "load_pretrained_into_state", checking):
         res = run("swin", lambda: loop_mod.train(cfg, device="cuda"), rff_phi=4 + 2,
-                  tta_fuse=4 + 2 * val_batches, window_attn_bwd=24 * 4)
+                  tta_fuse=4 + 2 * val_batches, window_attn_bwd=24 * 4, cam2mask=2 * 4)
     peak = torch.cuda.max_memory_allocated()
     if loaded != [True, True]:
         raise AssertionError(f"phase 12: pretrained backbone in student, teacher: {loaded}")
@@ -1863,7 +1934,7 @@ def phase_zoo(smi: str, root: str):
         f"{json.dumps({k: round(fin[k]['miou'], 6) for k in score_names(fin)})}, on {smi}")
 
     resumed = run("swin_resume", lambda: loop_mod.train(cfg_r, device="cuda"), rff_phi=2 + 2,
-                  tta_fuse=2 + val_batches, window_attn_bwd=24 * 2)
+                  tta_fuse=2 + val_batches, window_attn_bwd=24 * 2, cam2mask=2 * 2)
     if [r["iter"] for r in resumed["records"]] != [3, 4]:
         raise AssertionError(f"phase 12 resume: steps {[r['iter'] for r in resumed['records']]}")
     straight = {r["iter"]: r for r in recs}
@@ -2031,7 +2102,7 @@ def _int8_runs(smi: str, sec_iter: float, counts: dict):
         counts[tag] = kernels.launches()
         mm = counts[tag]["int8_mm"]
         want = _want(flash_fwd=48 * 4, flash_bwd=12 * 4, rff_phi=4 + 2, tta_fuse=4,
-                     int8_mm=per_step * 4)
+                     cam2mask=2 * 4, int8_mm=per_step * 4)
         if counts[tag] != want:
             raise AssertionError(f"phase 13 {tag}: launches {counts[tag]}; want {want}")
         recs = res["records"]
@@ -2105,7 +2176,8 @@ def _optimizer_runs(smi: str, counts: dict):
         res = train(cfg, device="cuda")
         torch.cuda.synchronize()
         counts[kind] = kernels.launches()
-        want = _want(flash_fwd=48 * 3, flash_bwd=12 * 3, rff_phi=3 + 2, tta_fuse=3)
+        want = _want(flash_fwd=48 * 3, flash_bwd=12 * 3, rff_phi=3 + 2, tta_fuse=3,
+                     cam2mask=2 * 3)
         if counts[kind] != want:
             raise AssertionError(f"phase 13 {kind}: launches {counts[kind]} != {want}")
         recs = res["records"]
@@ -2437,9 +2509,9 @@ def phase_parallel(smi: str, sec_iter: float, convention: float):
     ref_cfg = cfg_of(name="p14_ref")
     per_val = 12 * len(ref_cfg.eval_scales)  # K1 per image per model
 
-    def want(steps, images):  # K5: one TTA a step, one an image per model
+    def want(steps, images):  # K5: one TTA a step, one an image per model; K8 two a step
         return dict(flash_fwd=48 * steps + 2 * images * per_val, flash_bwd=12 * steps,
-                    rff_phi=steps, tta_fuse=steps + 2 * images)
+                    rff_phi=steps, tta_fuse=steps + 2 * images, cam2mask=2 * steps)
 
     launches, secs = {}, {}
 
@@ -2624,7 +2696,8 @@ def phase_runs(smi: str, out8: str, cfg8):
     _, _, secs = run("synthrun", lambda: run_synth.main(argv),
                      flash_fwd=48 * P15_STEPS + 2 * n_vals * val_k1 + val_k1,
                      flash_bwd=12 * P15_STEPS, rff_phi=P15_STEPS + 2,
-                     tta_fuse=P15_STEPS + (2 * n_vals + 1) * val_batches)
+                     tta_fuse=P15_STEPS + (2 * n_vals + 1) * val_batches,
+                     cam2mask=2 * P15_STEPS)
     with open(os.path.join(out, "metrics.jsonl")) as f:
         recs = [json.loads(ln) for ln in f]
     trains = [r for r in recs if r["kind"] == "train"]
@@ -2782,7 +2855,7 @@ def phase_audit(smi: str, root: str):
     torch.cuda.synchronize()
     counts["train"] = kernels.launches()
     want = _want(flash_fwd=48 * P17_STEPS, flash_bwd=12 * P17_STEPS, rff_phi=P17_STEPS + 2,
-                 tta_fuse=P17_STEPS)
+                 tta_fuse=P17_STEPS, cam2mask=2 * P17_STEPS)
     if counts["train"] != want:
         raise AssertionError(f"phase 17 train: launch counts {counts['train']} != {want}")
     first, last = res["records"][0], res["records"][-1]
@@ -2802,9 +2875,9 @@ def phase_audit(smi: str, root: str):
     # K3 once), each site again (48 + 12), each repeat (the student's
     # forward and backward, the teacher at its 3 token counts); K3 twice
     # more in the energy convention's calibration; K5 in the TTA with each
-    # of the three attentions and in the captured step
+    # of the three attentions and in the captured step, K8 for each head there
     want = _want(flash_fwd=36 + 48 + 48 + 4 * P17_REPEAT, flash_bwd=12 + 12 + P17_REPEAT,
-                 rff_phi=3, tta_fuse=3 + 1)
+                 rff_phi=3, tta_fuse=3 + 1, cam2mask=2 * (3 + 1))
     if counts["audit"] != want:
         raise AssertionError(f"phase 17 audit: launch counts {counts['audit']} != {want}")
     for line in audit_attention.table(report):

@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cosa_tpu_torch")
 SOURCES = {"flash": "flash_attn.cu", "rff": "rff_phi.cu", "tta_fuse": "tta_fuse.cu",
-           "window_attn": "window_attn.cu"}
+           "window_attn": "window_attn.cu", "cam2mask": "cam2mask.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

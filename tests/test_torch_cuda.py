@@ -30,7 +30,11 @@ forwards and on a padded grid: each output and gradient within 1.1x the
 plain bf16 version's error against float64 plus 1e-4; against the plain
 bf16 version within 2^-7 with at most one value in 1000 different, its
 table gradient within 1e-4 and bitwise repeatable; in f32 within 1e-5 of
-the plain f32 version."""
+the plain f32 version. K8 (the pseudo mask) at the cells' shapes, bf16 and
+f32 CAMs, downscale 1 and 2, float and tensor thresholds, with PAR, on odd
+canvases and boxes of negative ends: no label differs from the plain
+chain's, and with PAR its low-res probabilities equal torch's softmax
+bitwise."""
 
 import math
 
@@ -521,8 +525,8 @@ def test_gloo_dp2_on_one_card_matches_one_process(gpu):
     """Two ranks over gloo on the one card (parallel/launch.py), batch 2
     each, against one process at the global batch of 4 from the same state
     and batches: two steps' losses within 5e-3 relative (the bound of
-    chip_smoke.py's phases 5 and 14), the same K1/K2/K3/K5 launches on each
-    rank as in the one process."""
+    chip_smoke.py's phases 5 and 14), the same K1/K2/K3/K5/K8 launches on
+    each rank as in the one process."""
     from cosa_tpu_torch.config import preset_config
     from cosa_tpu_torch.parallel.launch import spawn, steps_worker
     from cosa_tpu_torch.train.state import create_train_state
@@ -543,7 +547,8 @@ def test_gloo_dp2_on_one_card_matches_one_process(gpu):
                   "cuda:0", init, batches)
     assert one["launches"] == {"flash_fwd": 2 * 48, "flash_bwd": 2 * 12, "rff_phi": 2,
                                "flash_fwd_bf16exp": 0, "flash_fwd_nomax": 0, "tta_fuse": 2,
-                               "window_attn_fwd": 0, "window_attn_bwd": 0, "int8_mm": 0}
+                               "window_attn_fwd": 0, "window_attn_bwd": 0, "int8_mm": 0,
+                               "cam2mask": 2 * 2, "cam2mask_probs": 0}
     for out in ranks:
         assert out["launches"] == one["launches"]
         for got, want in zip(out["metrics"], one["metrics"]):
@@ -860,3 +865,136 @@ def test_window_attn_kernel_in_f32(gpu, w, heads, hd):
         for a, r in zip(got, want):
             assert a.dtype == torch.float32
             assert _rel_err(a, r.double()) <= 1e-5
+
+
+# K8's cases: (B, H, W, classes, CAM type, downscale, boxes): VOC and Swin-B
+# training (a 448 crop, 20 classes), COCO training (80), the CAM grid
+# itself (downscale 1), eval canvases of validation's threshold filters
+# (the box [0, h - 1, 0, w - 1] of each image inside), and a small crop of
+# 5 classes (torch's NCHW resize kernel) with boxes of negative ends
+CAM2MASK_CASES = [
+    (4, 448, 448, 20, torch.bfloat16, 2, "crop"),
+    (4, 448, 448, 20, torch.float32, 2, "crop"),
+    (8, 448, 448, 80, torch.bfloat16, 2, "crop"),
+    (8, 448, 448, 80, torch.float32, 2, "crop"),
+    (4, 448, 448, 20, torch.float32, 1, "crop"),
+    (8, 448, 448, 80, torch.bfloat16, 1, "crop"),
+    (2, 353, 500, 20, torch.float32, 2, "eval"),
+    (8, 500, 500, 20, torch.float32, 2, "eval"),
+    (3, 37, 53, 5, torch.float32, 2, "negative"),
+    (3, 37, 53, 5, torch.bfloat16, 3, "negative"),
+]
+
+
+def _cam2mask_inputs(gpu, b, h, w, k, dtype, boxes, seed, shift=0.0):
+    """Validated CAMs as the step makes them (smooth maps in [0, 1] of the
+    present classes, 0 elsewhere, plus ``shift``), class labels (mean 1.5
+    of 20, 3.5 of 80; the first image none, the last all), crop boxes."""
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    lab = (rng.random((b, k)) < (1.5 if k <= 20 else 3.5) / k).astype(np.float32)
+    lab[0], lab[-1] = 0, 1
+    lab = torch.from_numpy(lab).to(gpu)
+    low = torch.rand((b, k, max(h // 32, 2), max(w // 32, 2)), generator=g, device=gpu)
+    cams = torch.nn.functional.interpolate(low, (h, w), mode="bicubic", align_corners=False)
+    cams = cams + 0.05 * torch.rand((b, k, h, w), generator=g, device=gpu)
+    cams = (cams.clamp(0, 1).permute(0, 2, 3, 1) * lab[:, None, None, :] + shift).to(dtype)
+    if boxes == "crop":
+        side = rng.integers(h // 2, h + 1, (b, 2))
+        off = (rng.random((b, 2)) * (h - side + 1)).astype(np.int64)
+        box = np.stack([off[:, 0], off[:, 0] + side[:, 0], off[:, 1], off[:, 1] + side[:, 1]], 1)
+    elif boxes == "eval":  # images of their own sizes on the canvas
+        sizes = [(h - 7 * i, w - 11 * i) for i in range(b)]
+        box = np.array([[0, hh - 1, 0, ww - 1] for hh, ww in sizes])
+    else:
+        box = np.array([[2, -3, -40, -1], [-20, h, 0, -5], [0, h, 0, w]][:b])
+    return cams.contiguous(), lab, torch.from_numpy(box.astype(np.int64)).to(gpu)
+
+
+def _differ(a, b) -> float:
+    assert a.dtype == b.dtype == torch.int32 and a.shape == b.shape
+    return float((a != b).double().mean())
+
+
+@pytest.mark.parametrize("tensors", [False, True])
+@pytest.mark.parametrize("b,h,w,k,dtype,downscale,boxes", CAM2MASK_CASES)
+def test_cam2mask_kernel_matches_plain(gpu, b, h, w, k, dtype, downscale, boxes, tensors):
+    """K8 against ``plain_cam2mask`` on the card, one launch a call, the
+    thresholds as floats and as 0-d device tensors (the GMM's EMAs): no label
+    differs. The kernel rounds the logits where the plain chain rounds,
+    sums its softmax in torch's order and contracts the interpolation as
+    torch's bilinear kernels do (bitwise equal probabilities with torch
+    2.11, CUDA 12.8), so the labels are the plain chain's."""
+    from cosa_tpu_torch.kernels import cam2mask as K
+
+    cams, lab, box = _cam2mask_inputs(gpu, b, h, w, k, dtype, boxes, seed=b * k + downscale)
+    hi, lo = (0.65, 0.25) if k == 80 else (0.7, 0.25)
+    if tensors:
+        hi, lo = (torch.tensor(v, device=gpu) for v in (hi, lo))
+    if boxes == "eval":
+        box = box.to(torch.int32)  # validation's boxes are int64 and the step's int32: both
+    before = K.LAUNCHES["cam2mask"]
+    got = K.cam2mask(box, cams, lab, hi, lo, downscale, 255)
+    assert K.LAUNCHES["cam2mask"] - before == 1
+    want = K.plain_cam2mask(box, cams, lab, hi, lo, downscale, 255)
+    assert _differ(got, want) == 0.0
+    assert (want == 255).any() and (want == 0).any()
+
+
+def test_cam2mask_kernel_where_absent_classes_win(gpu):
+    """CAMs near -1e5 and a background below it: the absent classes'
+    probability is not 0 and the first absent class wins where no class is
+    present, as every absent channel's does in the plain chain."""
+    from cosa_tpu_torch.kernels import cam2mask as K
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cams, lab, box = _cam2mask_inputs(gpu, 3, 64, 96, 20, dtype, "negative", 7,
+                                          shift=-99990.0)
+        got = K.cam2mask(box, cams, lab, -110000.0, -120000.0, 2, 255)
+        want = K.plain_cam2mask(box, cams, lab, -110000.0, -120000.0, 2, 255)
+        assert _differ(got, want) == 0.0
+        assert ((want > 0) & (want != 255)).any()
+
+
+@pytest.mark.parametrize("k", [20, 80])
+def test_cam2mask_kernel_with_par(gpu, k):
+    """With PAR: the kernel's low-res probabilities equal torch's softmax
+    bitwise (both thresholds), and after the same refine step the labels
+    equal the plain chain's; two launches a call."""
+    from cosa_tpu_torch.kernels import cam2mask as K
+    from cosa_tpu_torch.ops.par import par_refine
+
+    cams, lab, box = _cam2mask_inputs(gpu, 2, 448, 448, k, torch.float32, "crop", 11)
+    imgs = torch.rand((2, 448, 448, 3), device=gpu)
+    hi, lo = torch.tensor(0.6, device=gpu), torch.tensor(0.3, device=gpu)
+    seen = {"kernel": [], "plain": []}
+
+    def refine(tag):
+        def fn(images, probs):
+            seen[tag].append(probs.clone())
+            return par_refine(images, probs, dilations=(1, 2), num_iter=2)
+        return fn
+
+    before = dict(K.LAUNCHES)
+    got = K.cam2mask(box, cams, lab, hi, lo, 2, 255, refine_fn=refine("kernel"), images=imgs)
+    assert K.LAUNCHES["cam2mask"] - before["cam2mask"] == 1
+    assert K.LAUNCHES["cam2mask_probs"] - before["cam2mask_probs"] == 1
+    want = K.plain_cam2mask(box, cams, lab, hi, lo, 2, 255, refine_fn=refine("plain"),
+                            images=imgs)
+    for a, r in zip(seen["kernel"], seen["plain"]):
+        assert a.shape == r.shape == (2, 224, 224, k + 1) and torch.equal(a, r)
+    assert _differ(got, want) == 0.0
+
+
+def test_cam2mask_refuses_what_the_kernel_does_not_take(gpu):
+    from cosa_tpu_torch.kernels import cam2mask as K
+
+    cams, lab, box = _cam2mask_inputs(gpu, 2, 64, 64, 5, torch.float32, "crop", 3)
+    with pytest.raises(ValueError, match="cams"):
+        K.cam2mask(box, cams.half(), lab, 0.7, 0.25)
+    with pytest.raises(ValueError, match="0-d"):
+        K.cam2mask(box, cams, lab, torch.tensor([0.7], device=gpu), 0.25)
+    with pytest.raises(ValueError, match="img_box"):
+        K.cam2mask(box.cpu(), cams, lab, 0.7, 0.25)
+    with pytest.raises(ValueError, match="images"):
+        K.cam2mask(box, cams, lab, 0.7, 0.25, refine_fn=lambda i, p: p)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from cosa_tpu_torch import kernels
-from cosa_tpu_torch.kernels import build, flash, flash_variants, rff, tta_fuse, window_attn
+from cosa_tpu_torch.kernels import build, cam2mask, flash, flash_variants, rff, tta_fuse, window_attn
 from cosa_tpu_torch.models import quant
 
 
@@ -45,6 +45,13 @@ def _window_attn():
     window_attn.window_attention(qkv, table, 2).sum().backward()
 
 
+def _cam2mask():
+    box = torch.tensor([[0, 8, 0, 8]])
+    cam2mask.cam2mask(box, torch.rand(1, 8, 8, 3), torch.tensor([[1.0, 0.0, 1.0]]), 0.7, 0.3)
+    cam2mask.cam2mask(box, torch.rand(1, 8, 8, 3), torch.tensor([[1.0, 0.0, 1.0]]), 0.7, 0.3,
+                      refine_fn=lambda imgs, probs: probs, images=torch.rand(1, 8, 8, 3))
+
+
 def _quant():
     quant.int8_matmul(torch.randn(2, 3, 16), torch.nn.Linear(16, 8), torch.float32)
 
@@ -56,6 +63,7 @@ OWNERS = {
     "rff": (rff, {"rff_phi"}, _rff),
     "tta_fuse": (tta_fuse, {"tta_fuse"}, _tta_fuse),
     "window_attn": (window_attn, {"window_attn_fwd", "window_attn_bwd"}, _window_attn),
+    "cam2mask": (cam2mask, {"cam2mask", "cam2mask_probs"}, _cam2mask),
     "quant": (quant, {"int8_mm"}, _quant),
 }
 
